@@ -103,6 +103,44 @@ def test_kernels_match_plain(cuda, params):
             _assert_all_equal([crc], [crc_cuda.plain(ww, plens, Wd)], f"decode crc case={c}")
 
 
+@pytest.mark.parametrize("params,F", [
+    (GEOMETRIES[0], 1), (GEOMETRIES[0], 33), (GEOMETRIES[2], 33), (GEOMETRIES[3], 70), (GEOMETRIES[1], 33),
+    (Parameters(block_len=7, blocks_per_frame=41), 70),
+], ids=["L4B8-F1", "L4B8-F33", "L30B3-F33", "L7B40-F70", "default-F33", "L7B41-F70"])
+def test_decode_kernel_edges(cuda, params, F):
+    """K3 at the edges of its staged tiles and its bit reader: a partial
+    warp (F=1) and partial CTAs (F=33, 70); rows of 32, 90 and 280 samples
+    (not multiples of the tile); both store paths of a tile: full warps at
+    an even row length (every row 4-byte aligned, S=280 and 10,000) and at
+    an odd one (every other row aligned: S=287 with odd B and L, and the
+    n_blocks=2B override's 1 + 2BL); odd compact widths; and noise lanes
+    whose walk crosses, in the middle of a frame, from blocks that start
+    inside the buffer (register reader) to blocks that start past it
+    (windowed read)."""
+    from x3_tpu_torch.ops import decode_cuda, encode_cuda
+    from x3_tpu_torch.ops.encode_kernel import frame_geometry
+
+    rng = np.random.default_rng(17 + F + params.block_len)
+    S, B, _, WF = frame_geometry(params)
+    nv = torch.full((F,), S, dtype=torch.int32, device=cuda)
+    st = torch.from_numpy(_mixed(rng, F * S).reshape(F, S)).to(cuda)
+    words, _, _, nbytes, _ = encode_cuda.encode_words_cuda(st, nv, params, WF)
+    big = S > 1000  # the plain walk steps through every sample
+    for Wd in (5, WF) if big else (3, 5, WF):
+        noise = torch.from_numpy(rng.integers(-(2**31), 2**31, (F, Wd)).astype(np.int32)).to(cuda)
+        is_noise = (torch.arange(F, device=cuda) % 2 == 0)[:, None]
+        ww = torch.where(is_noise, noise, words[:, :Wd]).contiguous()
+        plens = torch.where(is_noise[:, 0], 4 * Wd, nbytes.clamp(max=4 * Wd)).to(torch.int32)
+        for nb in (None,) if big else (None, 2 * B):
+            got = decode_cuda.decode_words_cuda(ww, nv, plens, params, nb)
+            want = decode_cuda.plain(ww, nv, plens, params, nb)
+            _assert_all_equal(got, want, f"decode F={F} Wd={Wd} n_blocks={nb}")
+        if Wd < WF:
+            # The offset after B - 1 blocks is where the last block starts.
+            last_start = decode_cuda.plain(ww, nv, plens, params, B - 1)[2]
+            assert (last_start > 32 * Wd).any(), "a lane must cross the buffer's end mid-frame"
+
+
 @pytest.mark.parametrize("params", GEOMETRIES[:2], ids=["tiny", "default"])
 def test_slice_on_cuda_matches_cpu_and_oracle(cuda, params):
     import x3_tpu_torch as xt

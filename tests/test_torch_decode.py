@@ -169,6 +169,103 @@ def test_decode_default_geometry(mutate):
         np.testing.assert_array_equal(np.concatenate([got[0][i, : n[i]] for i in range(4)]), wav)
 
 
+def _reader_walk(words, n, plens, params, n_blocks=None):
+    """The walk with a straight bit reader: every code reads the frame's bits
+    from the walk's offset, with zero bits past word W, and each block's
+    start offset is recorded.  Returns (samples [F, S], err [F], final
+    offset [F], block starts [F, B])."""
+    from x3_tpu_torch.ops.decode_kernel import decode_geometry_of
+    from x3_tpu_torch.tables import device_tables
+
+    S, B, L, WFULL, _ = decode_geometry_of(params, n_blocks)
+    tabs = device_tables(params, "cpu")
+    nsubs, invlen = tabs.dec_nsubs, tabs.dec_invlen
+    F, W = words.shape
+    M = 0xFFFFFFFF
+
+    def wrap16(v):
+        return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+    out = np.zeros((F, 1 + B * L), np.int64)
+    err = np.zeros(F, np.int64)
+    off = np.zeros(F, np.int64)
+    starts = np.zeros((F, B), np.int64)
+    for f in range(F):
+        ws = [int(x) & M for x in words[f]] + [0, 0]  # zero words past W
+
+        def view(pos):
+            i, r = pos >> 5, pos & 31
+            w0, w1 = (ws[i], ws[i + 1]) if i < W else (0, 0)
+            return (((w0 << 32) | w1) << r >> 32) & M
+
+        pos = 16
+        last = out[f, 0] = wrap16(ws[0] >> 16)
+        for b in range(B):
+            starts[f, b] = pos
+            valid_block = 1 + b * L < n[f]
+            hdr = view(pos)
+            ftype, dec_nb = hdr >> 30, ((hdr >> 26) & 0xF) + 1
+            is_rice, is_pass = ftype >= 1, ftype == 0 and dec_nb == 16
+            bpf_err = valid_block and ftype == 0 and dec_nb <= 5
+            pos += 6 if ftype == 0 else 2
+            level = 1 << (nsubs[2] if ftype == 2 else nsubs[3])
+            nbsuf = 2 if ftype == 2 else 4
+            inv = invlen[ftype] if ftype else invlen[3]
+            neg = 1 << min(max(dec_nb - 1, 0), 30)
+            oob = False
+            for k in range(L):
+                valid = valid_block and 1 + b * L + k < n[f]
+                v32 = view(pos)
+                zeros = min(32 - v32.bit_length(), max(int(plens[f]) * 8 - pos, 0))
+                suffix = ((v32 << min(zeros, 31)) & M) >> (32 - nbsuf)
+                idx = zeros if ftype == 1 else suffix + level * (zeros - 1)
+                oob |= valid and is_rice and not 0 <= idx < inv
+                ic = min(max(idx, 0), 59)
+                a = v32 >> (32 - min(dec_nb, 31))
+                delta = (-((ic + 1) >> 1) if ic & 1 else (ic + 1) >> 1) if is_rice else \
+                    a - (2 * neg if a > neg else 0)
+                new = wrap16(v32 >> 16) if is_pass else wrap16(last + delta)
+                consume = zeros + 1 if ftype == 1 else (zeros + nbsuf if is_rice else dec_nb)
+                if valid:
+                    pos += min(consume, 16)
+                    last = new
+                out[f, 1 + b * L + k] = new
+            if not err[f]:
+                err[f] = 1 if bpf_err else (2 if oob else 0)
+        if not err[f] and pos > WFULL * 32:
+            err[f] = 3
+        off[f] = pos
+    return out[:, :S], err, off, starts
+
+
+@pytest.mark.parametrize("mutate", [False, True], ids=["clean", "mutated"])
+@pytest.mark.parametrize("params,n_frames,W", [
+    (TINY, 9, 8), (Parameters(block_len=7, blocks_per_frame=40), 6, 48), (LONG, 6, 16),
+    (Parameters(), 4, 1024),
+], ids=["tiny", "L7", "long", "default"])
+def test_in_buffer_blocks_read_the_plain_bitstream(params, n_frames, W, mutate):
+    """The invariant K3's register bit reader rests on: a block that starts
+    inside the buffer (offset < 32 W) reads, under the JAX walk's window and
+    stage masks (and the rolling register of blocks longer than 24 samples),
+    exactly the frame's bits from its offset with zeros past word W.  So on
+    every lane whose block starts all lie below 32 W a straight bit-reader
+    walk equals decode_words_plain in every output slot."""
+    from x3_tpu_torch.ops.decode_kernel import decode_words_plain, payload_words
+
+    rng = np.random.default_rng(41 + 7 * params.block_len + mutate)
+    buf, n, plens, _ = _batch(rng, params, n_frames, W, mutate)
+    words = payload_words(torch.from_numpy(buf))
+    out, err, off, starts = _reader_walk(words.numpy(), n, plens, port_params(params))
+    want = decode_words_plain(words, torch.from_numpy(n), torch.from_numpy(plens), port_params(params))
+    inside = (starts < 32 * W).all(axis=1)
+    if mutate:
+        assert inside.any() and not inside.all(), "lanes on both sides of the condition"
+    else:
+        assert inside.any()
+    for got, ref, name in zip((out, err, off), want, ("samples", "err", "offset")):
+        np.testing.assert_array_equal(got[inside], ref.numpy()[inside], err_msg=name)
+
+
 def test_decode_frames_unchecked_matches():
     import jax.numpy as jnp
 

@@ -109,3 +109,26 @@ def check_launch(rc: int, what: str) -> None:
     """Raise when a launch returned a non-zero cudaError_t."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {rc}")
+
+
+def resource_usage(name: str) -> str:
+    """ptxas' report (registers, spills, shared memory) for csrc/<name>.cu,
+    compiled with the kernels' own flags plus -Xptxas -v."""
+    out = build_dir() / f"ptxas-{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out),
+           str(CSRC / f"{name}.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stderr}")
+    return proc.stderr.strip()
+
+
+if __name__ == "__main__":
+    # python -m x3_tpu_torch.ops._build [kernel ...]: print ptxas' resource
+    # usage of each kernel source (all six by default).
+    import sys
+
+    for kernel in sys.argv[1:] or KERNELS:
+        print(f"# {kernel}.cu\n{resource_usage(kernel)}", flush=True)

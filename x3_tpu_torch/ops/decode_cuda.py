@@ -2,8 +2,11 @@
 
 Replaces x3_tpu/ops/decode_pallas.py::_decode_pallas_impl (with its
 wrapper's sample 0 and overrun check): one thread per frame walks the
-frame's payload words and writes int16 samples, the error code and the
-final bit offset.  The plain version it is held against is
+frame's payload words and gives int16 samples, the error code and the
+final bit offset.  Each warp stages its 32 frames' words in shared memory
+(cp.async, a tile of samples ahead) for a register bit reader, and its
+samples in a shared tile that it writes out row by row (see the source's
+header).  The plain version it is held against is
 decode_kernel.decode_words_plain."""
 
 from __future__ import annotations

@@ -2,9 +2,11 @@
 
 Frames are self-contained, so the frame axis is the parallel axis; within
 a frame every code's start depends on all earlier code lengths, so the
-walk is serial.  CUDA tensors run the decode kernel K3 (ops/decode_cuda.py,
-one thread per frame); CPU tensors run the plain version below, which
-steps all lanes through their bitstreams together, one sample at a time.
+walk is serial.  CUDA tensors run the decode kernel K3 (ops/decode_cuda.py:
+one thread per frame, a register bit reader over words staged in shared
+memory for blocks that start inside the buffer, the windowed read below for
+blocks past it); CPU tensors run the plain version below, which steps all
+lanes through their bitstreams together, one sample at a time.
 
 Both reproduce the JAX walk exactly, including on corrupt lanes:
 
