@@ -13,7 +13,10 @@ Phases (any failure raises and the exit code is non-zero):
    each corpus class at 768 frames: encode (K2) and CRC (K1) at the class's
    fitting width rung, the full rung and a compact rung that overflows;
    decode (K3) and CRC of the payloads, clean and mutated (byte flips,
-   truncated lengths, random lanes that walk past the buffer);
+   truncated lengths, random lanes that walk past the buffer); then a K1
+   sweep over junk rows of 1, 5, 131, 2,048 and 4,096 words, one frame and
+   141 frames: every length residue mod 128, lengths 0-3, the full row,
+   negative lengths and lengths past the row;
 4. the slice at full size: for each class, 6,144 frames (61.44 M samples)
    through x3_tpu_torch.encode, the archive container and
    decode_frames_batch with CRC checks; the roundtrip must be exact, the
@@ -229,6 +232,40 @@ def phase_kernels(params, errs: Errs, rng) -> None:
             f"({n_err} error lanes, {past} walked past W); {time.perf_counter() - t0:.1f} s")
 
 
+def crc_edge_lengths(rng, W: int) -> np.ndarray:
+    """int32 [141]: K1's edge lengths for rows of W words.  Every length
+    residue mod 128 (from 12,800 bytes up where the row holds them:
+    music-sized), 0-3, the full row, and negative and too-large lengths; an
+    odd count, so the last CTA of four frame-warps is partly empty."""
+    top = 4 * W
+    hi = max((top - 127) // 128, 0)  # 128 k + 127 stays in the row (clamped in short rows)
+    k = rng.integers(100 if top > 16000 else 0, hi + 1, 128)
+    edges = [0, 1, 2, 3, top, top - 1, -1, -129, -(2**31), top + 1, top + 128, 2**31 - 1, top // 2]
+    return np.concatenate([np.minimum(128 * k + np.arange(128), top), edges]).astype(np.int64).astype(np.int32)
+
+
+def crc_sweep(errs: Errs, rng) -> None:
+    """Phase 3's K1 sweep: rows of random words (junk past every length) at
+    crc_edge_lengths; all 141 lengths of a width in one batch, then the
+    first alone."""
+    import torch
+
+    from x3_tpu_torch.ops import crc_cuda
+
+    t0 = time.perf_counter()
+    for W in (1, 5, 131, 2048, 4096):
+        lens = crc_edge_lengths(rng, W)
+        words = torch.from_numpy(rng.integers(-(2**31), 2**31, (len(lens), W)).astype(np.int32)).to(DEV)
+        lengths = torch.from_numpy(lens).to(DEV)
+        for F in (len(lens), 1):
+            w, n = words[:F].contiguous(), lengths[:F].contiguous()
+            errs.check("crc16", [crc_cuda.crc16_words_cuda(w, n, W)], [crc_cuda.plain(w, n, W)],
+                       f"crc sweep W={W} F={F}")
+    log(f"# phase 3 crc sweep: K1 exact on junk rows of 1, 5, 131, 2048 and 4096 words, "
+        f"F=141 and F=1, every length residue mod 128, 0-3, negative and past the row; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def decode_batch_tensors(payloads, counts, params):
     """The decode batch decode_frames_batch walks for these payloads
     (models.decoder.payload_batch), as CUDA tensors."""
@@ -345,19 +382,24 @@ def phase_timing(params, slices, errs: Errs) -> dict:
             errs.check("crc16", [got[k]], [want[k]], f"{name} {k} at the main path's shapes")
         # Least bytes each kernel must move: every input read once, every
         # output written once; the CRC and the walk read only the payload
-        # bytes this batch holds.
+        # bytes this batch holds (the CRC's own tables are its design's, not
+        # the function's, and are not counted).
         t["encode_bound"] = bound_ms(nbytes_of(st, nv, *got["encode"]))
-        t["crc16_bound"] = bound_ms(int(nbytes.sum()) + nbytes_of(nbytes, got["crc16"]) + 256 * 4)
+        t["crc16_bound"] = bound_ms(int(nbytes.clamp(0, 4 * W).sum()) + nbytes_of(nbytes, got["crc16"]))
+        t["crc16_dec_bound"] = bound_ms(int(plens.clamp(0, 4 * Wd).sum())
+                                        + nbytes_of(plens, got["crc16_dec"]))
         t["decode_bound"] = bound_ms(int(plens.sum()) + nbytes_of(ns, plens, *got["decode"]))
         mb_enc = N_FRAMES_CHECK * S * 2 / 1e6
         mb_dec = len(d["counts"]) * S * 2 / 1e6
         log(f"# phase 5 {name}: kernels equal their plain versions; "
             f"encode K2 {t['encode']:.4f} ms ([{N_FRAMES_CHECK}, {S}] W={W}, "
             f"{mb_enc / t['encode']:.1f} GB/s; plain {t['encode_plain']:.3f} ms), "
-            f"crc K1 {t['crc16']:.4f} ms ([{N_FRAMES_CHECK}, {W}]; plain {t['crc16_plain']:.3f} ms), "
+            f"crc K1 {t['crc16']:.4f} ms ([{N_FRAMES_CHECK}, {W}]; plain {t['crc16_plain']:.3f} ms, "
+            f"bound {t['crc16_bound']:.4f} ms), "
             f"decode K3 {t['decode']:.4f} ms ([{dwords.shape[0]}, {Wd}], "
             f"{mb_dec / t['decode']:.1f} GB/s; plain {t['decode_plain']:.1f} ms), "
-            f"decode crc K1 {t['crc16_dec']:.4f} ms (plain {t['crc16_dec_plain']:.3f} ms)")
+            f"decode crc K1 {t['crc16_dec']:.4f} ms (plain {t['crc16_dec_plain']:.3f} ms, "
+            f"bound {t['crc16_dec_bound']:.4f} ms)")
         times[name] = t
     return times
 
@@ -462,7 +504,7 @@ def phase_routes(params, slices, errs: Errs, route_mods: dict) -> tuple[dict, di
     return launches, first
 
 
-def phase_profile(params, top: int = 8) -> None:
+def phase_profile(params, top: int = 12) -> None:
     """--profile: where the slice's time goes, per class at full size.  For
     a warm encode and a warm checked decode: wall ms, then torch.profiler's
     device ops and cProfile's host functions, each by self time."""
@@ -549,6 +591,7 @@ def main() -> int:
     # Phase 3: kernels against their plain versions.
     errs = Errs()
     phase_kernels(params, errs, np.random.default_rng(20261016))
+    crc_sweep(errs, np.random.default_rng(20261017))
 
     # Phase 4: the main path; count only its launches.  A 4-frame run first
     # sets up what the first call would otherwise time (the CUDA caching

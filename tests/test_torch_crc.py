@@ -97,6 +97,70 @@ def test_crc_golden_vectors(golden, key, value, n):
     assert got.tolist() == [value]
 
 
+def _fold_model(words, lengths):
+    """The CRC kernel's arithmetic (csrc/crc16.cu) in numpy, on the tables
+    the wrapper passes it: a warp per frame, lane j reading word 32 s + j at
+    step s, masked at the length; p = A(p) ^ E0..E3 per step, lane 0 seeded
+    with S^-124(0xffff); each lane's partial advanced to the stripe's end,
+    XOR-reduced over the warp, then S^-z."""
+    from x3_tpu_torch import tables as t
+
+    tab = t.crc_fold_tables("cpu").numpy().view(np.uint16).astype(np.int64)
+    F, W = words.shape
+    n = np.clip(lengths.astype(np.int64), 0, 4 * W)
+    nw, steps = (n + 3) >> 2, (n + 127) >> 7
+    lane = np.arange(32)
+    w64 = words.astype(np.int64)
+    p = np.zeros((F, 32), np.int64)
+    p[:, 0] = tab[t.FOLD_SEED]
+    for s in range(int(steps.max(initial=0))):
+        i = 32 * s + lane[None, :]
+        w = np.where(i < nw[:, None], w64[np.arange(F)[:, None], np.minimum(i, W - 1)], 0)
+        keep = np.clip(n[:, None] - 4 * i, 0, 4)
+        x = w & ((0xFFFFFFFF << (32 - 8 * keep)) & 0xFFFFFFFF)
+        e = tab[t.FOLD_E + (x >> 24)] ^ tab[t.FOLD_E + 256 + ((x >> 16) & 0xFF)] \
+            ^ tab[t.FOLD_E + 512 + ((x >> 8) & 0xFF)] ^ tab[t.FOLD_E + 768 + (x & 0xFF)]
+        step = tab[t.FOLD_A_HI + (p >> 8)] ^ tab[t.FOLD_A_LO + (p & 0xFF)] ^ e
+        p = np.where((s < steps)[:, None], step, p)
+    r = np.zeros(F, np.int64)
+    for b in range(16):
+        r ^= np.bitwise_xor.reduce(((p >> b) & 1) * tab[t.FOLD_LANE + 32 * b + lane], axis=1)
+    z = 128 * steps - n
+    crc = np.zeros(F, np.int64)
+    for b in range(16):
+        crc ^= ((r >> b) & 1) * tab[t.FOLD_UNPAD + 16 * z + b]
+    return crc
+
+
+@pytest.mark.parametrize("lengths", ["0..300", "4W", "negative", "above 4W"])
+@pytest.mark.parametrize("n_words", [1, 5, 130])
+def test_crc_fold_model_matches_crc16_many(rng, n_words, lengths):
+    """The kernel's fold, modelled in numpy on its own tables, equals the
+    byte-serial CRC on every length, with junk past each length."""
+    cases = {"0..300": np.arange(301), "4W": [4 * n_words, 4 * n_words - 1, 4 * n_words - 5],
+             "negative": [-1, -4, -129, -(2**31)], "above 4W": [4 * n_words + 1, 4 * n_words + 128, 2**31 - 1]}
+    lens = np.asarray(cases[lengths], np.int64).astype(np.int32)
+    words = rng.integers(0, 1 << 32, (len(lens), n_words), dtype=np.uint64).astype(np.uint32)
+    want = crc16_many(_rows(words), np.clip(lens, 0, 4 * n_words))
+    np.testing.assert_array_equal(_fold_model(words, lens), want)
+
+
+def test_crc_fold_layout_matches_the_kernel():
+    """csrc/crc16.cu's table offsets and size are tables.FOLD_*: the kernel
+    reads the entries the wrapper's tables hold, and copies all of them."""
+    import re
+    from pathlib import Path
+
+    from x3_tpu_torch import tables as t
+
+    src = (Path(t.__file__).parent / "csrc" / "crc16.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(r"\bk(AHi|ALo|E|Lane|Unpad|Seed|TableSize) = (\d+)\b", src)}
+    assert got == {"AHi": t.FOLD_A_HI, "ALo": t.FOLD_A_LO, "E": t.FOLD_E, "Lane": t.FOLD_LANE,
+                   "Unpad": t.FOLD_UNPAD, "Seed": t.FOLD_SEED, "TableSize": t.FOLD_SIZE}
+    assert t.FOLD_SIZE % 8 == 0 and t.FOLD_SEED < t.FOLD_SIZE  # whole 16-byte vectors
+    assert t.crc_fold_tables_np().shape == (t.FOLD_SIZE,)
+
+
 def test_crc_rejects_width_mismatch():
     from x3_tpu_torch.ops.crc_torch import crc16_words
 

@@ -141,6 +141,26 @@ def test_decode_kernel_edges(cuda, params, F):
             assert (last_start > 32 * Wd).any(), "a lane must cross the buffer's end mid-frame"
 
 
+@pytest.mark.parametrize("F", [1, "all"])
+@pytest.mark.parametrize("W", [1, 5, 131, 4096])
+def test_crc_kernel_edges(cuda, W, F):
+    """K1 at the edges of its stripes, masks and CTAs, junk past every
+    length (chip_smoke.crc_edge_lengths, the lengths of its phase-3 sweep):
+    one frame, and 141 frames (not a multiple of the CTA's four
+    frame-warps); rows of 1, 5, 131 and 4,096 words."""
+    from chip_smoke import crc_edge_lengths
+    from x3_tpu_torch.ops import crc_cuda
+
+    rng = np.random.default_rng(23 + W)
+    lens = crc_edge_lengths(rng, W)
+    lens = lens[:1] if F == 1 else lens
+    assert F == 1 or len(lens) % 4
+    words = torch.from_numpy(rng.integers(-(2**31), 2**31, (len(lens), W)).astype(np.int32)).to(cuda)
+    lengths = torch.from_numpy(lens).to(cuda)
+    got = crc_cuda.crc16_words_cuda(words, lengths, W)
+    _assert_all_equal([got], [crc_cuda.plain(words, lengths, W)], f"crc W={W} F={len(lens)}")
+
+
 @pytest.mark.parametrize("params", GEOMETRIES[:2], ids=["tiny", "default"])
 def test_slice_on_cuda_matches_cpu_and_oracle(cuda, params):
     import x3_tpu_torch as xt

@@ -99,9 +99,10 @@ def test_crc_tables_match(n_words):
     from x3_tpu.ops.crc import CRC_TABLE
     from x3_tpu.ops.crc_jax import crc_matmul_consts
 
-    from x3_tpu_torch.tables import crc_consts, crc_table
+    from x3_tpu_torch.tables import FOLD_E, crc_consts, crc_fold_tables
 
-    assert crc_table("cpu").tolist() == CRC_TABLE.astype(np.int64).tolist()
+    e3 = crc_fold_tables("cpu")[FOLD_E + 768 : FOLD_E + 1024].numpy().view(np.uint16)
+    assert e3.tolist() == CRC_TABLE.tolist()  # E_3, the last byte of a word, is T itself
     m, const_init, inv_pows = crc_consts(n_words, "cpu")
     rm, rc, rinv = crc_matmul_consts(n_words * 4)
     np.testing.assert_array_equal(m.numpy(), rm.astype(np.float32))

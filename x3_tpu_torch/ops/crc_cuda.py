@@ -1,15 +1,17 @@
 """Wrapper of the CRC kernel K1 (csrc/crc16.cu).
 
 Replaces x3_tpu/ops/crc_pallas.py::crc_planes_pallas (with crc_jax.
-_crc16_finish's un-padding): one thread per frame computes the CRC16 of
-the row's leading bytes from the byte table in shared memory.  The plain
-version it is held against is crc_torch.crc16_words_plain."""
+_crc16_finish's un-padding): a warp per frame walks the row in coalesced
+128-byte stripes, each lane folding its own words with GF(2) tables
+(tables.crc_fold_tables, in shared memory); the lanes' partials are
+aligned, XOR-reduced and un-padded by S^-z.  The plain version it is held
+against is crc_torch.crc16_words_plain."""
 
 from __future__ import annotations
 
 import torch
 
-from ..tables import crc_table
+from ..tables import crc_fold_tables
 from ._bits import check_tensor
 from ._build import check_launch, load
 from .crc_torch import crc16_words_plain
@@ -39,7 +41,7 @@ def crc16_words_cuda(words: torch.Tensor, lengths: torch.Tensor, n_words: int) -
         return out
     with torch.cuda.device(dev):  # the raw launch goes to the current device
         fn = load("crc16", "x3_crc16_words", 4, 2)
-        rc = fn(words.data_ptr(), lengths.data_ptr(), crc_table(dev).data_ptr(), out.data_ptr(),
+        rc = fn(words.data_ptr(), lengths.data_ptr(), crc_fold_tables(dev).data_ptr(), out.data_ptr(),
                 F, W, torch.cuda.current_stream(dev).cuda_stream)
     check_launch(rc, "crc16_words_cuda")
     launch_count += 1

@@ -2,10 +2,11 @@
 
 `crc16_words` is the contract of crc16_words_jax: CRC-16/CCITT (init
 0xffff) of the first `lengths[f]` bytes of each row of big-endian 32-bit
-words.  A CUDA tensor goes to the CRC kernel (ops/crc_cuda.py); a CPU
-tensor to the plain version below, which keeps the JAX package's GF(2)
-formulation: the data part is bits(words) @ M over GF(2), and the trailing
-zero padding is undone by S^-z (crc_jax._crc16_finish)."""
+words.  A CUDA tensor goes to the CRC kernel (ops/crc_cuda.py), which folds
+128-byte stripes a warp per frame with GF(2) tables; a CPU tensor to the
+plain version below, which keeps the JAX package's GF(2) formulation: the
+data part is bits(words) @ M over GF(2), and the trailing zero padding is
+undone by S^-z (crc_jax._crc16_finish)."""
 
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ The JAX kernels close over numpy constants derived from `Parameters` (the
 CRC table, the GF(2) CRC matrix, the Rice decode tables and the Rice
 statistics slots).  Here the same numpy values are built (the GF(2) CRC
 constants as x3_tpu.ops.crc_jax.crc_matmul_consts builds them) and become
-torch tensors on the requested device."""
+torch tensors on the requested device.  The CRC kernel K1 reads tables of
+its own, built from the same CRC table (crc_fold_tables)."""
 
 from __future__ import annotations
 
@@ -127,10 +128,62 @@ def device_tables(params: Parameters, device) -> DeviceTables:
     )
 
 
+# Layout of the fold tables (uint16 entries; offsets into crc_fold_tables_np).
+# csrc/crc16.cu repeats it as kAHi ... kSeed and kTableSize; a test of
+# tests/test_torch_crc.py holds the two equal.
+FOLD_LANES = 32  # one warp: lane j reads word 32*s + j at step s
+FOLD_STRIPE = 4 * FOLD_LANES  # bytes per step
+FOLD_A_HI, FOLD_A_LO = 0, 256  # S^128 of the partial's high / low byte
+FOLD_E = 512  # 4 x 256: E_k[b] = S^(3-k) T[b], byte k of a word (k = 0 first)
+FOLD_LANE = 1536  # [16, 32]: column b of lane j's S^(4 (31 - j)) at FOLD_LANE + 32 * b + j
+FOLD_UNPAD = 2048  # [128, 16]: column b of S^-z at 16 * z + b
+FOLD_SEED = 4096  # one entry: S^-124(0xffff), lane 0's partial before step 0
+FOLD_SIZE = 4104  # padded to whole 16-byte vectors (the kernel's loads)
+
+
+def _s_pow_cols(k: int) -> np.ndarray:
+    """Basis-image columns of S^k (k >= 0)."""
+    cols = np.uint16(1) << np.arange(16, dtype=np.uint16)
+    for _ in range(k):
+        cols = _s_apply(cols)
+    return cols
+
+
+@functools.lru_cache(maxsize=1)
+def crc_fold_tables_np() -> np.ndarray:
+    """uint16 [FOLD_SIZE]: the tables of the warp-per-frame CRC kernel
+    (csrc/crc16.cu, whose header gives the algebra), at the FOLD_*
+    offsets.  S^-z is built from the S^-(2^i) of crc_matmul_consts,
+    i = 0..6, and so is the seed S^-124(0xffff)."""
+    out = np.zeros(FOLD_SIZE, dtype=np.uint16)
+    byte = np.arange(256, dtype=np.uint16)
+    a = _s_pow_cols(FOLD_STRIPE)
+    out[FOLD_A_HI : FOLD_A_HI + 256] = _apply_cols(a, byte << np.uint16(8))
+    out[FOLD_A_LO : FOLD_A_LO + 256] = _apply_cols(a, byte)
+    e = CRC_TABLE.astype(np.uint16)
+    for k in range(3, -1, -1):
+        out[FOLD_E + 256 * k : FOLD_E + 256 * (k + 1)] = e
+        e = _s_apply(e)
+    for j in range(FOLD_LANES):
+        out[FOLD_LANE + j : FOLD_UNPAD : FOLD_LANES] = _s_pow_cols(4 * (FOLD_LANES - 1 - j))
+    inv_pows = crc_matmul_consts(FOLD_STRIPE)[2]
+    for z in range(FOLD_STRIPE):
+        cols = np.uint16(1) << np.arange(16, dtype=np.uint16)
+        for lvl in range(7):
+            if (z >> lvl) & 1:
+                cols = np.array([_apply_cols(inv_pows[lvl], c) for c in cols], dtype=np.uint16)
+        out[FOLD_UNPAD + 16 * z : FOLD_UNPAD + 16 * (z + 1)] = cols
+    seed = np.uint16(0xFFFF)
+    for lvl in (2, 3, 4, 5, 6):  # 124 = 4 + 8 + 16 + 32 + 64
+        seed = _apply_cols(inv_pows[lvl], seed)
+    out[FOLD_SEED] = seed
+    return out
+
+
 @functools.lru_cache(maxsize=4)
-def crc_table(device) -> torch.Tensor:
-    """CRC-16/CCITT byte table (ops.crc.CRC_TABLE) as int32 [256]."""
-    return torch.from_numpy(CRC_TABLE.astype(np.int32)).to(torch.device(device))
+def crc_fold_tables(device) -> torch.Tensor:
+    """crc_fold_tables_np as int16 bit patterns on `device`."""
+    return torch.from_numpy(crc_fold_tables_np().view(np.int16).copy()).to(torch.device(device))
 
 
 @functools.lru_cache(maxsize=8)
