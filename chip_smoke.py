@@ -16,7 +16,9 @@ Phases (any failure raises and the exit code is non-zero):
    truncated lengths, random lanes that walk past the buffer); then a K1
    sweep over junk rows of 1, 5, 131, 2,048 and 4,096 words, one frame and
    141 frames: every length residue mod 128, lengths 0-3, the full row,
-   negative lengths and lengths past the row;
+   negative lengths and lengths past the row; then a K2 edge batch of 141
+   frames of 287 samples with the n_valid edges 0, 1, 2, L, L+1, S-1 and
+   S, at 1 and 8 words and the fitting, full and compact rungs;
 4. the slice at full size: for each class, 6,144 frames (61.44 M samples)
    through x3_tpu_torch.encode, the archive container and
    decode_frames_batch with CRC checks; the roundtrip must be exact, the
@@ -242,6 +244,78 @@ def crc_edge_lengths(rng, W: int) -> np.ndarray:
     k = rng.integers(100 if top > 16000 else 0, hi + 1, 128)
     edges = [0, 1, 2, 3, top, top - 1, -1, -129, -(2**31), top + 1, top + 128, 2**31 - 1, top // 2]
     return np.concatenate([np.minimum(128 * k + np.arange(128), top), edges]).astype(np.int64).astype(np.int32)
+
+
+def mixed_signal(rng, n: int) -> np.ndarray:
+    """int16 [n]: silence, small and medium noise, BFP jumps, full-scale
+    noise and a random walk, a sixth each: every block type."""
+    seg = max(1, n // 6)
+    parts = [
+        np.zeros(seg),
+        np.round(rng.normal(0, 1.2, seg)),
+        np.round(rng.normal(0, 5, seg)),
+        np.round(rng.normal(0, 400, seg)),
+        rng.integers(-32768, 32768, seg),
+        np.cumsum(rng.integers(-40, 41, n - 5 * seg)),
+    ]
+    return np.clip(np.concatenate(parts), -32768, 32767).astype(np.int16)[:n]
+
+
+def k2_edge_batch(rng, params, F: int, noise: bool = False):
+    """int16 [F, S] frames each of every block type (or all full-scale
+    noise, the longest payloads) with the n_valid edges 0, 1, 2, L, L+1,
+    S-1 and S on the last frames (zero past n_valid); int32 [F] n_valid."""
+    S, L = params.samples_per_frame, params.block_len
+    if noise:
+        frames = rng.integers(-32768, 32768, (F, S)).astype(np.int16)
+    else:
+        frames = np.stack([mixed_signal(rng, S) for _ in range(F)])
+    edges = [0, 1, 2, L, L + 1, S - 1, S]
+    n_valid = np.full(F, S, np.int32)
+    k = min(F, len(edges))
+    n_valid[F - k :] = np.minimum(edges[len(edges) - k :], S)
+    for f in range(F):
+        frames[f, n_valid[f] :] = 0
+    return frames, n_valid
+
+
+def k2_edge_widths(params, nbytes) -> list[int]:
+    """K2's edge widths for a batch: 1 and 8 words, the fitting rung, the
+    full rung and a compact rung below the fitting one, which overflows."""
+    from x3_tpu_torch.ops.encode_kernel import fits_width, frame_geometry, width_rungs
+
+    WF = frame_geometry(params)[3]
+    ladder = width_rungs(params)
+    w_fit = next(r for r in ladder if fits_width(nbytes, r, params))
+    i = ladder.index(w_fit)
+    return sorted({1, 8, w_fit, WF, ladder[i - 1] if i else max(1, w_fit // 2)})
+
+
+def k2_edges(errs: Errs, rng) -> None:
+    """Phase 3's K2 edge batch: 141 frames of 287 samples (L=7, B=41: rows
+    only 2-byte aligned on odd frames, a partial last wave of CTAs) with
+    the n_valid edges, at widths of 1 and 8 words and the fitting, full and
+    compact rungs."""
+    import torch
+
+    import x3_tpu_torch
+    from x3_tpu_torch.ops import encode_cuda
+    from x3_tpu_torch.ops.encode_kernel import frame_geometry
+
+    t0 = time.perf_counter()
+    params = x3_tpu_torch.Parameters(block_len=7, blocks_per_frame=41)
+    frames, n_valid = k2_edge_batch(rng, params, 141)
+    st = torch.from_numpy(frames).to(DEV)
+    nv = torch.from_numpy(n_valid).to(DEV)
+    WF = frame_geometry(params)[3]
+    widths = k2_edge_widths(params, encode_cuda.plain(st, nv, params, WF)[3].cpu().numpy())
+    for W in widths:
+        errs.check("encode", encode_cuda.encode_words_cuda(st, nv, params, W),
+                   encode_cuda.plain(st, nv, params, W), f"K2 edges W={W}")
+    T, CH = encode_cuda.chunk_blocks(params.blocks_per_frame, params.block_len, WF)
+    log(f"# phase 3 K2 edges: encode exact on 141 frames of L=7 B=41 (S=287; {T} threads, "
+        f"{CH} blocks a chunk) with n_valid {sorted(set(n_valid.tolist()))} at W={widths}; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def crc_sweep(errs: Errs, rng) -> None:
@@ -592,6 +666,7 @@ def main() -> int:
     errs = Errs()
     phase_kernels(params, errs, np.random.default_rng(20261016))
     crc_sweep(errs, np.random.default_rng(20261017))
+    k2_edges(errs, np.random.default_rng(20261018))
 
     # Phase 4: the main path; count only its launches.  A 4-frame run first
     # sets up what the first call would otherwise time (the CUDA caching

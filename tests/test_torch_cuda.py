@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import mixed_signal as _mixed
 from x3_tpu_torch import Parameters
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "golden.npz"
@@ -34,21 +35,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     return torch.device("cuda")
-
-
-def _mixed(rng, n):
-    """Silence, small and medium noise, BFP jumps, full-scale noise and a
-    random walk: every block type."""
-    seg = max(1, n // 6)
-    parts = [
-        np.zeros(seg),
-        np.round(rng.normal(0, 1.2, seg)),
-        np.round(rng.normal(0, 5, seg)),
-        np.round(rng.normal(0, 400, seg)),
-        rng.integers(-32768, 32768, seg),
-        np.cumsum(rng.integers(-40, 41, n - 5 * seg)),
-    ]
-    return np.clip(np.concatenate(parts), -32768, 32767).astype(np.int16)[:n]
 
 
 def _frames(rng, params, F):
@@ -139,6 +125,52 @@ def test_decode_kernel_edges(cuda, params, F):
             # The offset after B - 1 blocks is where the last block starts.
             last_start = decode_cuda.plain(ww, nv, plens, params, B - 1)[2]
             assert (last_start > 32 * Wd).any(), "a lane must cross the buffer's end mid-frame"
+
+
+@pytest.mark.parametrize("params,F,case", [
+    (GEOMETRIES[0], 1, ""), (GEOMETRIES[0], 141, ""), (GEOMETRIES[2], 33, ""),
+    (Parameters(block_len=7, blocks_per_frame=41), 141, ""), (GEOMETRIES[1], 33, ""),
+    (GEOMETRIES[1], 141, "noise"), (GEOMETRIES[2], 33, "offset"),
+    (Parameters(block_len=7, blocks_per_frame=41, thresholds=(3, 8, 2000)), 33, ""),
+    (Parameters(block_len=6200, blocks_per_frame=2), 33, "long"),
+    (Parameters(block_len=1000, blocks_per_frame=3), 33, "W57000"),
+    (GEOMETRIES[2], 33, "Wmax"),
+], ids=["L4B8-F1", "L4B8-F141", "L30B3-F33", "L7B41-F141", "default-F33", "default-noise-F141",
+        "L30B3-offset-F33", "L7B41-t2000-F33", "L6200B2-F33", "L1000B3-W57000-F33", "L30B3-Wmax-F33"])
+def test_encode_kernel_edges(cuda, params, F, case):
+    """K2 against its plain version, exactly, at the edges of its design:
+    partial waves (F = 1, 33, 141); rows of 32, 90, 287 and 10,000 samples
+    (16-, 4- and 2-byte aligned) and a batch that starts 6 bytes past a
+    16-byte boundary (the staging's scalar head and tail); the n_valid
+    edges; full-scale noise at the full rung (the longest payloads); rungs
+    of 1 and 8 words and an overflowing compact rung; Rice items of up to
+    504 bits; a block longer than the staging buffer (device-memory reads);
+    and words that leave room for two blocks a chunk, or for none."""
+    from chip_smoke import k2_edge_batch, k2_edge_widths
+    from x3_tpu_torch.ops import encode_cuda
+    from x3_tpu_torch.ops.encode_kernel import frame_geometry
+
+    rng = np.random.default_rng(29 + F + params.block_len)
+    frames, n_valid = k2_edge_batch(rng, params, F, noise=case == "noise")
+    st = torch.from_numpy(frames).to(cuda)
+    if case == "offset":
+        flat = torch.zeros(st.numel() + 3, dtype=torch.int16, device=cuda)
+        flat[3:] = st.reshape(-1)
+        st = flat[3:].view(st.shape)
+    nv = torch.from_numpy(n_valid).to(cuda)
+    WF = frame_geometry(params)[3]
+    widths = {"W57000": [57000], "Wmax": [encode_cuda.MAX_WORDS]}.get(case)
+    if widths is None:
+        widths = k2_edge_widths(params, encode_cuda.plain(st, nv, params, WF)[3].cpu().numpy())
+    blocks_a_chunk = {"W57000": 2, "Wmax": 0, "long": 0}  # 0: no staging, device-memory reads
+    if case in blocks_a_chunk:
+        assert encode_cuda.chunk_blocks(params.blocks_per_frame, params.block_len, widths[-1])[1] == \
+            blocks_a_chunk[case]
+    for W in widths:
+        got = encode_cuda.encode_words_cuda(st, nv, params, W)
+        _assert_all_equal(got, encode_cuda.plain(st, nv, params, W), f"encode W={W}")
+    with pytest.raises(ValueError):
+        encode_cuda.encode_words_cuda(st, nv, params, encode_cuda.MAX_WORDS + 1)
 
 
 @pytest.mark.parametrize("F", [1, "all"])

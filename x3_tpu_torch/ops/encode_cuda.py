@@ -20,8 +20,28 @@ REPLACES = "x3_tpu/ops/encode_fused_pallas.py:141"
 plain = encode_words_plain
 launch_count = 0  # launches of the kernel since the last reset
 
-# A frame's W words live in shared memory (at most 227 KB a block).
-MAX_WORDS = (227 * 1024) // 4
+# A CTA's shared memory (csrc/encode.cu repeats these as kThreads,
+# kSmemBytes, kStaticBytes, kStageBytes and kPad; a CPU test holds the two
+# equal): the frame's W words, rounded up to 16 bytes, then a buffer that
+# stages chunks of whole X3 blocks.  The buffer takes what the words leave,
+# up to STAGE_BYTES; where not even one block fits, the blocks read device
+# memory.  So MAX_WORDS is the budget less the static arrays alone.
+THREADS = 256
+SMEM_BYTES = 232448  # 227 KB, the most a block may use on sm_90
+STATIC_BYTES = 128
+STAGE_BYTES = 12288
+STAGE_PAD = 8  # staging slots beyond a chunk's samples (its 16-byte misalignment)
+MAX_WORDS = (SMEM_BYTES - STATIC_BYTES) // 16 * 4
+
+
+def chunk_blocks(B: int, L: int, W: int) -> tuple[int, int]:
+    """(threads, X3 blocks per chunk) of K2's launch for B blocks of L
+    samples and W words, as x3_encode_frames picks them: one block a
+    thread, as many as the staging buffer holds; 0 blocks a chunk means
+    no staging (every block reads device memory, a chunk of T blocks)."""
+    T = min(THREADS, -(-B // 32) * 32)
+    room = min(STAGE_BYTES, SMEM_BYTES - STATIC_BYTES - 16 * -(-W // 4)) // 2 - STAGE_PAD
+    return T, (max(min(T, room // L), 0) if L > 0 else T)
 
 
 def encode_words_cuda(samples: torch.Tensor, n_valid: torch.Tensor, params: Parameters, W: int):
