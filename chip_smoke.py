@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (x3_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the repository root; needs a GPU and nvcc
-    python3 chip_smoke.py --profile  # phases 1-2, then where the slice's time goes
+    python3 chip_smoke.py --profile  # phases 1-2, then where the time goes: K4-K6
+                                     # alone, then the slice
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -18,7 +19,10 @@ Phases (any failure raises and the exit code is non-zero):
    141 frames: every length residue mod 128, lengths 0-3, the full row,
    negative lengths and lengths past the row; then a K2 edge batch of 141
    frames of 287 samples with the n_valid edges 0, 1, 2, L, L+1, S-1 and
-   S, at 1 and 8 words and the fitting, full and compact rungs;
+   S, at 1 and 8 words and the fitting, full and compact rungs; then a
+   K5/K6 edge batch (pack_edges): K5 on 384,001 lanes of every item kind
+   at nb4 1, 13 and 40, K6 on packed, gapped and overlapping frames at
+   W = 8, compact, fitting and no-staging widths;
 4. the slice at full size: for each class, 6,144 frames (61.44 M samples)
    through x3_tpu_torch.encode, the archive container and
    decode_frames_batch with CRC checks; the roundtrip must be exact, the
@@ -318,6 +322,142 @@ def k2_edges(errs: Errs, rng) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def _edge_items(rng, kinds: np.ndarray, n_items: int):
+    """uint64 values and int64 lengths [len(kinds), n_items] of items (or
+    pairs) of seven kinds: 0 random lengths 0-32 with values wider than
+    their length; 1 all 32-bit; 2 lengths that end every second item on a
+    word boundary (given a word-aligned start), then a zero-length item
+    with a non-zero value; 3 all zero-length with non-zero values; 4
+    well-formed (value < 2**length); 5 empty (zero lengths and values);
+    6 lengths past the contract's 32 bits (33 to 1,000) among random ones."""
+    n = len(kinds)
+    lens = rng.integers(0, 33, (n, n_items))
+    vals = rng.integers(0, 2**32, (n, n_items), dtype=np.uint64)
+    lens[kinds == 1] = 32
+    a = rng.integers(1, 32, (n, n_items))
+    step = np.arange(n_items) % 3
+    aligned = np.where(step == 0, a, np.where(step == 1, 32 - np.roll(a, 1, axis=1), 0))
+    lens[kinds == 2] = aligned[kinds == 2]
+    lens[kinds == 3] = 0
+    vals[kinds == 3] |= 1
+    wf = kinds == 4
+    vals[wf] &= (np.uint64(1) << lens[wf].astype(np.uint64)) - np.uint64(1)
+    lens[kinds == 5] = 0
+    vals[kinds == 5] = 0
+    wide = (kinds[:, None] == 6) & (rng.random((n, n_items)) < 0.3)
+    lens[wide] = rng.choice([33, 40, 64, 254, 255, 256, 1000], int(wide.sum()))
+    return vals, lens
+
+
+def k5_edge_batch(rng, I: int, N: int):
+    """K5's edge lanes (numpy int32): item_val and item_len [I, N], r2
+    [1, N].  Lanes of every kind of `_edge_items`, shuffled so warps
+    diverge (lengths past 32 bits make the window jump); offsets r2 word-aligned, 0, 31 or random below 256, and on a
+    sixth of the lanes up to 48 words, so lanes skip slots and pieces drop
+    past any nb4 up to 40."""
+    kinds = rng.integers(0, 7, N)
+    vals, lens = _edge_items(rng, kinds, I)
+    r2 = rng.integers(0, 256, N)
+    r2 = np.where(rng.random(N) < 0.3, r2 & ~31, r2)
+    r2[kinds == 2] &= ~31
+    r2[rng.random(N) < 0.05] = 0
+    r2[rng.random(N) < 0.05] = 31
+    far = rng.random(N) < 1 / 6
+    r2[far] = rng.integers(0, 48 * 32, int(far.sum()))
+    return (np.ascontiguousarray(vals.T).astype(np.uint32).view(np.int32),
+            np.ascontiguousarray(lens.T).astype(np.int32), r2[None, :].astype(np.int32))
+
+
+def k6_edge_batch(rng, F: int, B: int, P: int, layout: str = "packed"):
+    """K6's edge frames (numpy int32): mval and mlen [F, B, P] with blocks
+    of the kinds of `_edge_items`, and block_off [F, B].  Layouts:
+    "packed", each block at the end of the one before (the encoder's);
+    "gaps", random gaps between blocks, some word-aligned starts;
+    "overlap", random offsets below the frame's bits (blocks overlap and
+    go back); "wide", packed, with blocks of kind 6 (lengths past 32
+    bits), which only this layout has."""
+    kinds = rng.integers(0, 7 if layout == "wide" else 6, F * B)
+    vals, lens = _edge_items(rng, kinds, P)
+    mval = vals.astype(np.uint32).view(np.int32).reshape(F, B, P)
+    mlen = lens.astype(np.int32).reshape(F, B, P)
+    bits = mlen.sum(axis=2).astype(np.int64)
+    if layout == "overlap":
+        boff = rng.integers(0, max(1, int(bits.sum(axis=1).max())), (F, B))
+    else:
+        gap = rng.integers(0, 70, (F, B)) if layout == "gaps" else np.zeros((F, B), np.int64)
+        align = (rng.random((F, B)) < 0.2) & (layout == "gaps")
+        boff = np.zeros((F, B), np.int64)
+        end = np.zeros(F, np.int64)
+        for b in range(B):
+            start = end + gap[:, b]
+            boff[:, b] = np.where(align[:, b], (start + 31) & ~31, start)
+            end = boff[:, b] + bits[:, b]
+    return mval, mlen, boff.astype(np.int32)
+
+
+K5_EDGES = [(nb4, I) for nb4 in (1, 13, 40) for I in (22, 9)]  # (nb4, items a lane)
+K6_EDGES = {  # id -> (F, B, P, L, layout, W, shift): W "fit" or "compact" from the frames' bits
+    "route-W8": (96, 500, 11, 20, "packed", 8, 0),
+    "route-compact": (96, 500, 11, 20, "packed", "compact", 0),
+    "route-fit": (96, 500, 11, 20, "packed", "fit", 0),
+    "route-fit-shifted": (96, 500, 11, 20, "packed", "fit", 1),
+    "gaps-shifted": (96, 41, 5, 7, "gaps", "fit", 3),
+    "overlap": (96, 41, 5, 7, "overlap", "fit", 0),
+    "nb-drops": (96, 40, 11, 4, "packed", "fit", 0),
+    "wide": (96, 41, 5, 7, "wide", "fit", 0),
+    "max": (4, 12, 11, 20, "packed", "max", 0),
+    "max-gaps-shifted": (4, 12, 11, 20, "gaps", "max", 2),
+    "max-less-one-shifted": (4, 12, 11, 20, "packed", "max-1", 1),
+    "one-block": (4, 1, 3, 4, "packed", 8, 0),
+}
+
+
+def k6_edge_case(rng, case: str, frames: int | None = None):
+    """(mval, mlen, block_off as numpy, W, L, shift) of K6_EDGES[case]
+    (with `frames` frames where given): "fit" is the widest frame's words
+    and two more, "compact" half of them (it overflows), "max" the
+    wrapper's MAX_WORDS, "max-1" one word less (rows off a 16-byte
+    boundary)."""
+    from x3_tpu_torch.ops.pack_walk_cuda import MAX_WORDS
+
+    F, B, P, L, layout, W, shift = K6_EDGES[case]
+    mval, mlen, boff = k6_edge_batch(rng, frames or F, B, P, layout)
+    need = int((boff.astype(np.int64) + mlen.sum(axis=2)).max()) // 32 + 2
+    W = {"fit": need, "compact": max(8, need // 2), "max": MAX_WORDS, "max-1": MAX_WORDS - 1}.get(W, W)
+    return mval, mlen, boff, W, L, shift
+
+
+def on_device(a: np.ndarray, shift: int = 0):
+    """`a` as a contiguous tensor on the card whose data starts `shift`
+    elements past the start of its allocation (so 4*shift bytes off a
+    16-byte boundary for int32)."""
+    import torch
+
+    flat = torch.zeros(a.size + shift, dtype=torch.from_numpy(a[:0]).dtype, device=DEV)
+    flat[shift:] = torch.from_numpy(np.ascontiguousarray(a).reshape(-1)).to(DEV)
+    return flat[shift:].view(a.shape)
+
+
+def pack_edges(errs: Errs, rng) -> None:
+    """Phase 3's K5/K6 edge batch: K5 on 384,001 edge lanes (more than one
+    wave of resident CTAs) at nb4 1, 13 and 40 and 22 or 9 items a lane;
+    K6 on the edge frames of K6_EDGES."""
+    from x3_tpu_torch.ops import pack_cuda, pack_walk_cuda
+
+    t0 = time.perf_counter()
+    for nb4, I in K5_EDGES:
+        vals, lens, r2 = (on_device(a) for a in k5_edge_batch(rng, I, 384001))
+        errs.check("pack_blocks", [pack_cuda.pack_blocks_cuda(vals, lens, r2, nb4)],
+                   [pack_cuda.plain(vals, lens, r2, nb4)], f"K5 edges nb4={nb4} I={I}")
+    for case in K6_EDGES:
+        mval, mlen, boff, W, L, shift = k6_edge_case(rng, case)
+        args = (on_device(mval, shift), on_device(mlen, shift), on_device(boff), W, L)
+        errs.check("pack_walk", [pack_walk_cuda.pack_walk_cuda(*args)], [pack_walk_cuda.plain(*args)],
+                   f"K6 edges {case} W={W}")
+    log(f"# phase 3 pack edges: K5 exact on 384001 edge lanes at (nb4, I) {K5_EDGES}; K6 exact on "
+        f"{', '.join(K6_EDGES)}; {time.perf_counter() - t0:.1f} s")
+
+
 def crc_sweep(errs: Errs, rng) -> None:
     """Phase 3's K1 sweep: rows of random words (junk past every length) at
     crc_edge_lengths; all 141 lengths of a width in one batch, then the
@@ -478,6 +618,46 @@ def phase_timing(params, slices, errs: Errs) -> dict:
     return times
 
 
+def route_batch(params, name: str) -> dict:
+    """Phase 6's batch of a class, the batch of phase 3 (a partial, a
+    one-sample and a dummy frame at the end), in the pack routes' tensors:
+    K4's lanes and its outputs (from the kernel), K5's r2, K6's pairs and
+    block offsets, and the fitting W and NW rungs and the rungs below
+    them, which overflow."""
+    import torch
+
+    from x3_tpu_torch.ops import front_cuda
+    from x3_tpu_torch.ops._bits import as_i32
+    from x3_tpu_torch.ops.encode_kernel import (
+        GR, _block_layout, _nbytes, _pairs, block_width_rungs, fits_block_width, fits_width,
+        frame_geometry, front_lanes, width_rungs)
+
+    S, B, _, _ = frame_geometry(params)
+    frames, n_valid = frames_of(make_class_corpus(name, N_FRAMES_CHECK, S, seed=11), S)
+    F = len(frames)
+    st = torch.from_numpy(frames).to(DEV)
+    nv = torch.from_numpy(n_valid).to(DEV)
+    lanes = front_lanes(st, nv, params)
+    front = front_cuda.encode_front_cuda(*lanes, params)
+    vals, lens, _ = front
+    block_off, total_bits, blockfit = _block_layout(lens.to(torch.int64).sum(dim=0).reshape(F, B))
+    r2 = (block_off & (32 * GR - 1)).reshape(1, -1).to(torch.int32)
+    nbytes, blockfit = _nbytes(total_bits).cpu().numpy(), blockfit.cpu().numpy()
+    w_ladder, nw_ladder = width_rungs(params), block_width_rungs(params)
+    w_fit = next(r for r in w_ladder if fits_width(nbytes, r, params))
+    nw_fit = next(r for r in nw_ladder if fits_block_width(blockfit, r, params))
+    w_small = w_ladder[w_ladder.index(w_fit) - 1] if w_fit != w_ladder[0] else w_fit // 2
+    nw_small = nw_ladder[nw_ladder.index(nw_fit) - 1] if nw_fit != nw_ladder[0] else 1
+    require(not fits_width(nbytes, w_small, params), "compact W rung must overflow")
+    require(not fits_block_width(blockfit, nw_small, params), "compact NW rung must overflow")
+    iv = vals.to(torch.int64).reshape(-1, F, B).permute(1, 2, 0) & 0xFFFFFFFF
+    il = lens.to(torch.int64).reshape(-1, F, B).permute(1, 2, 0)
+    mval, mlen = _pairs(iv, il)
+    return dict(n_valid=n_valid, lanes=lanes, front=front, r2=r2, mval=as_i32(mval).contiguous(),
+                mlen=mlen.to(torch.int32).contiguous(), boff=block_off.to(torch.int32),
+                w_fit=w_fit, w_small=w_small, nw_fit=nw_fit, nw_small=nw_small)
+
+
 def phase_routes(params, slices, errs: Errs, route_mods: dict) -> tuple[dict, dict]:
     """Phase 6: the encoder's pack routes at full size, then K4-K6 against
     their plain versions on one batch per class, and their device times.
@@ -486,10 +666,7 @@ def phase_routes(params, slices, errs: Errs, route_mods: dict) -> tuple[dict, di
     import torch
 
     from x3_tpu_torch.ops import front_cuda, pack_cuda, pack_walk_cuda
-    from x3_tpu_torch.ops._bits import as_i32
-    from x3_tpu_torch.ops.encode_kernel import (
-        GR, _block_layout, _nbytes, _pairs, block_width_rungs, encode_frames, fits_block_width,
-        fits_width, frame_geometry, front_lanes, width_rungs)
+    from x3_tpu_torch.ops.encode_kernel import GR, encode_frames, frame_geometry
 
     S, B, L, _ = frame_geometry(params)
     # (i) every route equals the K2 route on all frames of every class.
@@ -518,38 +695,18 @@ def phase_routes(params, slices, errs: Errs, route_mods: dict) -> tuple[dict, di
         require(n > 0, f"kernel {k} was not launched by the pack routes")
 
     # (ii) K4-K6 against their plain versions; (iii) their device times.
-    # The batch of phase 3 (a partial, a one-sample and a dummy frame at the
-    # end): its fitting W and NW rungs, and the rungs below them, which
-    # overflow.
     first = None
-    w_ladder, nw_ladder = width_rungs(params), block_width_rungs(params)
     for name in CLASSES:
-        frames, n_valid = frames_of(make_class_corpus(name, N_FRAMES_CHECK, S, seed=11), S)
-        F = len(frames)
-        st = torch.from_numpy(frames).to(DEV)
-        nv = torch.from_numpy(n_valid).to(DEV)
-        lanes = front_lanes(st, nv, params)
-        got = front_cuda.encode_front_cuda(*lanes, params)
-        errs.check("front", got, front_cuda.plain(*lanes, params), f"{name} front")
-        vals, lens, _ = got
-        block_off, total_bits, blockfit = _block_layout(lens.to(torch.int64).sum(dim=0).reshape(F, B))
-        r2 = (block_off & (32 * GR - 1)).reshape(1, -1).to(torch.int32)
-        nbytes, blockfit = _nbytes(total_bits).cpu().numpy(), blockfit.cpu().numpy()
-        w_fit = next(r for r in w_ladder if fits_width(nbytes, r, params))
-        nw_fit = next(r for r in nw_ladder if fits_block_width(blockfit, r, params))
-        w_small = w_ladder[w_ladder.index(w_fit) - 1] if w_fit != w_ladder[0] else w_fit // 2
-        nw_small = nw_ladder[nw_ladder.index(nw_fit) - 1] if nw_fit != nw_ladder[0] else 1
-        require(not fits_width(nbytes, w_small, params), "compact W rung must overflow")
-        require(not fits_block_width(blockfit, nw_small, params), "compact NW rung must overflow")
+        b = route_batch(params, name)
+        lanes, (vals, lens, _), r2 = b["lanes"], b["front"], b["r2"]
+        mval, mlen, boff = b["mval"], b["mlen"], b["boff"]
+        w_fit, w_small, nw_fit, nw_small = b["w_fit"], b["w_small"], b["nw_fit"], b["nw_small"]
+        F = len(b["n_valid"])
+        errs.check("front", b["front"], front_cuda.plain(*lanes, params), f"{name} front")
         for nw in (nw_fit, nw_small):
             args = (vals, lens, r2, nw + GR - 1)
             errs.check("pack_blocks", [pack_cuda.pack_blocks_cuda(*args)], [pack_cuda.plain(*args)],
                        f"{name} pack_blocks NW={nw}")
-        iv = vals.to(torch.int64).reshape(-1, F, B).permute(1, 2, 0) & 0xFFFFFFFF
-        il = lens.to(torch.int64).reshape(-1, F, B).permute(1, 2, 0)
-        mval, mlen = _pairs(iv, il)
-        mval, mlen = as_i32(mval).contiguous(), mlen.to(torch.int32).contiguous()
-        boff = block_off.to(torch.int32)
         for W in (w_fit, w_small):
             args = (mval, mlen, boff, W, L)
             errs.check("pack_walk", [pack_walk_cuda.pack_walk_cuda(*args)],
@@ -576,6 +733,57 @@ def phase_routes(params, slices, errs: Errs, route_mods: dict) -> tuple[dict, di
             f"W={w_fit}")
         first = first or t
     return launches, first
+
+
+def profile_route_kernels(params, reps: int = 20) -> None:
+    """--profile: K4, K5 and K6 alone on phase 6's batch of each class at
+    its fitting rungs, `reps` launches under torch.profiler: each kernel's
+    device ms a launch (the wrappers' host pace does not enter), beside
+    the bound phase 6 computes from the same tensors."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from x3_tpu_torch.ops import front_cuda, pack_cuda, pack_walk_cuda
+    from x3_tpu_torch.ops.encode_kernel import GR, frame_geometry
+
+    L = frame_geometry(params)[2]
+    for name in CLASSES:
+        b = route_batch(params, name)
+        vals, lens, _ = b["front"]
+        nb4 = b["nw_fit"] + GR - 1
+        runs = {  # kernel -> (launch, its inputs)
+            "front": (lambda: front_cuda.encode_front_cuda(*b["lanes"], params), b["lanes"]),
+            "pack_blocks": (lambda: pack_cuda.pack_blocks_cuda(vals, lens, b["r2"], nb4),
+                            (vals, lens, b["r2"])),
+            "pack_walk": (lambda: pack_walk_cuda.pack_walk_cuda(b["mval"], b["mlen"], b["boff"],
+                                                                b["w_fit"], L),
+                          (b["mval"], b["mlen"], b["boff"])),
+        }
+        for k, (fn, ins) in runs.items():
+            out = fn()
+            bound = bound_ms(nbytes_of(*ins, *(out if isinstance(out, tuple) else [out])))
+            torch.cuda.synchronize()
+            # CUPTI may drop a launch's record, or a whole session's (seen on
+            # the card): the mean is over the launches recorded, and a
+            # session that recorded none is run again, up to three times.
+            for _ in range(3):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                rows = [e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA and e.self_device_time_total
+                        and not e.key.startswith("Activity Buffer")]
+                if rows:
+                    break
+            calls = sum(e.count for e in rows)
+            require(0 < calls <= reps and len(rows) == 1,
+                    f"profile {name} {k}: {calls} device rows for {reps} launches ({[e.key for e in rows]})")
+            ms = rows[0].self_device_time_total / 1e3 / calls
+            log(f"# profile {name} {k}: device {ms:.4f} ms a launch over {calls} of {reps} launches "
+                f"(nb4={nb4}, W={b['w_fit']}), bound {bound:.4f} ms ({bound / ms:.0%} of it); "
+                f"{rows[0].key[:60]}")
 
 
 def phase_profile(params, top: int = 12) -> None:
@@ -659,6 +867,7 @@ def main() -> int:
         f"{_build.build_all():.1f} s ({_build.build_dir()})")
 
     if "--profile" in sys.argv[1:]:
+        profile_route_kernels(params)
         phase_profile(params)
         return 0
 
@@ -667,6 +876,7 @@ def main() -> int:
     phase_kernels(params, errs, np.random.default_rng(20261016))
     crc_sweep(errs, np.random.default_rng(20261017))
     k2_edges(errs, np.random.default_rng(20261018))
+    pack_edges(errs, np.random.default_rng(20261019))
 
     # Phase 4: the main path; count only its launches.  A 4-frame run first
     # sets up what the first call would otherwise time (the CUDA caching

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import K5_EDGES, K6_EDGES
 from chip_smoke import mixed_signal as _mixed
 from x3_tpu_torch import Parameters
 
@@ -282,6 +283,32 @@ def test_pack_route_kernels_match_plain(cuda, params):
     for W in sorted({8, max(8, WF // 3), WF}):
         got = pack_walk_cuda.pack_walk_cuda(mval, mlen, boff, W, L)
         _assert_all_equal([got], [pack_walk_cuda.plain(mval, mlen, boff, W, L)], f"pack_walk W={W}")
+
+
+@pytest.mark.parametrize("case", [f"k5-nb4{nb4}-I{I}" for nb4, I in K5_EDGES] + [f"k6-{c}" for c in K6_EDGES])
+def test_pack_kernel_edges(cuda, case):
+    """K5 and K6 against their plain versions, exactly, on chip_smoke's
+    edge tensors: K5 lanes with values wider than their length, 32-bit
+    items, items ending on a word before zero-length items with non-zero
+    values, offsets that skip slots and drop every piece, at nb4 1, 13 and
+    40, item counts on and off the unroll factor, 300,001 lanes (more than
+    one wave of resident CTAs); K6 frames of the same pairs, packed, with
+    gaps and word-aligned starts, or overlapping, at W = 8, a compact W, a
+    fitting W, with blocks past NB words, at MAX_WORDS and one word less,
+    and inputs off a 16-byte boundary."""
+    from chip_smoke import k5_edge_batch, k6_edge_case, on_device
+    from x3_tpu_torch.ops import pack_cuda, pack_walk_cuda
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    if case.startswith("k5-"):
+        nb4, I = K5_EDGES[[f"k5-nb4{a}-I{b}" for a, b in K5_EDGES].index(case)]
+        vals, lens, r2 = (on_device(a) for a in k5_edge_batch(rng, I, 300001))
+        got = pack_cuda.pack_blocks_cuda(vals, lens, r2, nb4)
+        _assert_all_equal([got], [pack_cuda.plain(vals, lens, r2, nb4)], case)
+    else:
+        mval, mlen, boff, W, L, shift = k6_edge_case(rng, case[3:])
+        args = (on_device(mval, shift), on_device(mlen, shift), on_device(boff), W, L)
+        _assert_all_equal([pack_walk_cuda.pack_walk_cuda(*args)], [pack_walk_cuda.plain(*args)], case)
 
 
 @pytest.mark.parametrize("mode,env", [

@@ -17,7 +17,7 @@ SOURCE = "x3_tpu_torch/csrc/pack_blocks.cu"
 REPLACES = "x3_tpu/ops/pack_pallas.py:28"
 launch_count = 0  # launches of the kernel since the last reset
 
-MAX_NB4 = 40  # the kernel keeps a lane's slots in registers
+MAX_NB4 = 40  # the slots of a lane (the kernel's shared tile holds 40 a thread)
 
 
 def _check(item_val, item_len, r2, nb4, dev):

@@ -19,8 +19,8 @@ SOURCE = "x3_tpu_torch/csrc/pack_walk.cu"
 REPLACES = "x3_tpu/ops/pack_walk_pallas.py:117"
 launch_count = 0  # launches of the kernel since the last reset
 
-MAX_NB = 32  # the kernel keeps a block's words in registers
-MAX_WORDS = (227 * 1024) // 4  # a frame's W words live in shared memory
+MAX_NB = 32  # the words one block may span (the contract's limit)
+MAX_WORDS = (227 * 1024) // 4  # a frame's W words live in shared memory (227 KB on sm_90)
 
 
 def walk_buffer_words(L: int) -> int:
