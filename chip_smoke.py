@@ -41,7 +41,21 @@ Phases (any failure raises and the exit code is non-zero):
    on every output (blockfit_bits aside under "segment"), K4-K6 launched;
    then on one 768-frame batch K4 (front), K5 (block pack) and K6 against
    their plain versions, exact, at the fitting rungs and at compact rungs
-   that overflow, and the device time of each kernel and plain version.
+   that overflow, and the device time of each kernel and plain version;
+7. the file layer (x3_tpu_torch.files) on the card, in a temporary
+   directory (about 1.9 GB of disk): each class's 6,144-frame WAV (written
+   by the port's WavWriter) through wav_to_x3a, whose archive must equal
+   phase 4's byte for byte, and back through x3a_to_wav, equal to the
+   input; verify_x3a and x3a_info against the walk; the MB/s of both
+   directions over three warm calls; x3a_to_wav at 768, 2,048 and 6,144
+   frames a batch; then a one-hour 96 kHz hydrophone recording (34,560
+   frames and a partial one, 691 MB, made in 6,144-frame chunks) through
+   both directions, each in a fresh process (`--rss-child`) whose peak
+   RSS growth (the kernel's peak where it moves, else the largest RSS
+   sampled every millisecond) must stay under half the WAV's size; its
+   head equal to the port's CPU encode, X3aReader's random access, and
+   damage (a payload byte, a frame-header byte) giving the reference's
+   errors and counts; K1-K3 must have been launched by it.
 
 The line before the last is a JSON object describing each kernel (with
 its least time on the card from the bytes it must move, at 3.35 TB/s);
@@ -53,9 +67,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -68,6 +85,12 @@ CLASSES = ("hydrophone", "music", "pi240")
 SAMPLE_RATE = 96000
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM at 700 W (NVIDIA's data sheet)
+HOUR_FRAMES = 34560  # phase 7: one hour of 96 kHz mono in 10,000-sample frames
+HOUR_TAIL = 7777  # samples of the hour file's partial last frame
+CHUNK_FRAMES = 6144  # the hour file is made and written this many frames at a time
+CMP_SAMPLES = 4 << 20  # WAVs are compared this many samples at a time
+DECODE_SWEEP = (768, 2048, 6144)  # x3a_to_wav batch sizes timed in phase 7
+DAMAGED_FRAMES = (1000, 2000)  # phase 7: a payload byte, then a header byte, of these frames
 GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden.npz"
 ROUTES = {  # phase 6: route -> (pack_mode, environment); "K2" is the reference
     "K2": ("block", {"X3_FUSED_ENCODE": "1"}),
@@ -545,8 +568,8 @@ def phase_slice(params):
             f"head equal to the CPU encode; ratio {ratio:.4f}; rungs W={res.width_used} "
             f"NW={res.block_width_used}; encode {mb / t_enc:.1f} MB/s ({t_enc:.3f} s), "
             f"decode {mb / t_dec:.1f} MB/s ({t_dec:.3f} s), frame walk {t_walk:.3f} s")
-        out[name] = dict(samples=samples, payloads=payloads, counts=counts, w=res.width_used,
-                         nw=res.block_width_used)
+        out[name] = dict(samples=samples, archive=archive, payloads=payloads, counts=counts,
+                         w=res.width_used, nw=res.block_width_used)
     golden = np.load(GOLDEN)
     got = xt.encode(golden["frame_wav"], xt.Parameters(), device=DEV).data
     require(got == golden["frame_expected"].tobytes(), "the golden frame differs from the reference's")
@@ -735,6 +758,337 @@ def phase_routes(params, slices, errs: Errs, route_mods: dict) -> tuple[dict, di
     return launches, first
 
 
+def rss_now() -> int:
+    """The process's resident set in bytes (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def rss_peak() -> int:
+    """The process's peak resident set in bytes (getrusage; 0 where the
+    kernel does not keep it)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class RssSampler:
+    """The largest rss_now() seen, every `period` seconds on a thread, while
+    the `with` block runs."""
+
+    def __init__(self, period: float = 0.001):
+        import threading
+
+        self.period, self.peak = period, rss_now()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            self.peak = max(self.peak, rss_now())
+            time.sleep(self.period)
+
+    def __enter__(self):
+        self._t.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._t.join()
+        self.peak = max(self.peak, rss_now())
+
+
+def rss_child(argv) -> int:
+    """--rss-child DIRECTION SRC DST BATCH RUNS WARM_SRC WARM_DST, in a
+    fresh process: one small conversion (WARM_SRC -> WARM_DST) loads the
+    kernels and sets up the allocators, then RUNS timed conversions of SRC
+    to DST; prints the wall times, the RSS and the peak RSS before them,
+    the peak RSS after them and the largest RSS sampled during them, as
+    JSON."""
+    from x3_tpu_torch import files
+
+    direction, src, dst, batch, runs, warm_src, warm_dst = argv
+    fn = files.wav_to_x3a if direction == "encode" else files.x3a_to_wav
+    kw = dict(batch_frames=None if batch == "default" else int(batch), device=DEV)
+    fn(warm_src, warm_dst, **kw)
+    rss0, peak0 = rss_now(), rss_peak()
+    times = []
+    with RssSampler() as sampler:
+        for _ in range(int(runs)):
+            t, out = timed_call(lambda: fn(src, dst, **kw))
+            require(direction == "encode" or out == 0, f"x3a_to_wav {src}: {out} frame errors")
+            times.append(t)
+    print(json.dumps({"times": times, "rss0": rss0, "peak0": peak0, "peak": rss_peak(),
+                      "sampled": sampler.peak}))
+    return 0
+
+
+def rss_run(direction: str, src, dst, warm: tuple, batch="default", runs: int = 1) -> dict:
+    """rss_child in a fresh interpreter (a process's peak RSS cannot be
+    reset in place everywhere).  Adds "growth" in MB over the RSS before
+    the runs: from the kernel's peak RSS where the runs set a new peak for
+    the process ("how": "peak"), else from the largest RSS sampled every
+    millisecond during them ("how": "sampled")."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--rss-child", direction, str(src), str(dst),
+           str(batch), str(runs), str(warm[0]), str(warm[1])]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    require(out.returncode == 0, f"rss child {direction} {src}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    d = json.loads(out.stdout.strip().splitlines()[-1])
+    exact = d["peak"] > d["peak0"]
+    d["how"] = "peak" if exact else "sampled"
+    d["growth"] = ((d["peak"] if exact else d["sampled"]) - d["rss0"]) / 1e6
+    return d
+
+
+def timed_call(fn):
+    """(wall seconds of fn() ending in torch.cuda.synchronize(), its result)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def wav_samples(path, start: int, count: int) -> np.ndarray:
+    with wave.open(str(path), "rb") as w:
+        w.setpos(start)
+        return np.frombuffer(w.readframes(count), dtype="<i2")
+
+
+def wav_length(path) -> int:
+    with wave.open(str(path), "rb") as w:
+        return w.getnframes()
+
+
+def same_samples(a, a_start: int, b, b_start: int, count: int) -> bool:
+    """Samples [a_start, +count) of WAV a equal [b_start, +count) of WAV b,
+    compared CMP_SAMPLES at a time."""
+    for k in range(0, count, CMP_SAMPLES):
+        n = min(CMP_SAMPLES, count - k)
+        x, y = wav_samples(a, a_start + k, n), wav_samples(b, b_start + k, n)
+        if len(x) != n or not np.array_equal(x, y):
+            return False
+    return True
+
+
+def same_wav(a, b) -> bool:
+    """Two WAV files with the same header and samples."""
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read(44) != fb.read(44):
+            return False
+    return same_samples(a, 0, b, 0, wav_length(a))
+
+
+def write_class_wav(path, samples: np.ndarray) -> None:
+    from x3_tpu_torch.utils.wav import WavWriter
+
+    with WavWriter(path, SAMPLE_RATE) as w:
+        w.write(samples)
+
+
+def check_archive(path, n_frames: int, n_samples: int, what: str) -> list:
+    """verify_x3a and x3a_info of a clean archive against its frame walk;
+    returns the walk's (payload_offset, FrameHeader) index."""
+    from x3_tpu_torch import archive, files
+
+    with open(path, "rb") as f:
+        _, header_size = archive.read_archive_header_file(f)
+        index = list(archive.walk_frames_file(f, header_size))
+    rep = files.verify_x3a(path, device=DEV)
+    require(rep["ok"] and rep["frame_errors"] == 0 and rep["skipped_bytes"] == 0
+            and rep["n_frames"] == n_frames == len(index) and rep["n_samples_ok"] == n_samples,
+            f"{what}: verify_x3a reports {rep}")
+    info = files.x3a_info(path, device=DEV)
+    walked = (len(index), sum(h.samples for _, h in index), sum(h.payload_len for _, h in index))
+    require((info["n_frames"], info["n_samples"], info["payload_bytes"]) == walked,
+            f"{what}: x3a_info {info} disagrees with the walk {walked}")
+    return index
+
+
+def phase_files_class(name: str, d: dict, td: Path, smi: str, warm: dict) -> dict:
+    """Phase 7 for one class's 6,144-frame corpus: the archive equals phase
+    4's, the roundtrip is exact, verify and info agree with the walk, and
+    the MB/s of three warm calls each way (the check call is the warm
+    one).  For the first class also the decode batch-size sweep."""
+    from x3_tpu_torch import files
+
+    samples = d["samples"]
+    mb = samples.nbytes / 1e6
+    src, x3a, back = td / f"{name}.wav", td / f"{name}.x3a", td / f"{name}.back.wav"
+    write_class_wav(src, samples)
+    files.wav_to_x3a(src, x3a, device=DEV)
+    require(x3a.read_bytes() == d["archive"], f"{name}: wav_to_x3a differs from phase 4's archive")
+    require(files.x3a_to_wav(x3a, back, device=DEV) == 0, f"{name}: x3a_to_wav reported frame errors")
+    require(same_wav(back, src), f"{name}: x3a_to_wav differs from the input WAV")
+    check_archive(x3a, len(d["counts"]), len(samples), name)
+    enc = [timed_call(lambda: files.wav_to_x3a(src, x3a, device=DEV))[0] for _ in range(3)]
+    dec = [timed_call(lambda: files.x3a_to_wav(x3a, back, device=DEV))[0] for _ in range(3)]
+    require(x3a.read_bytes() == d["archive"] and same_wav(back, src), f"{name}: timed calls differ")
+    log(f"# phase 7 {name}: {len(d['counts'])} frames ({mb:.2f} MB int16) exact through wav_to_x3a "
+        f"(= phase 4's archive) and x3a_to_wav; verify_x3a ok; x3a_info = walk; wav_to_x3a "
+        f"{mb / max(enc):.1f}-{mb / min(enc):.1f} MB/s, x3a_to_wav {mb / max(dec):.1f}-{mb / min(dec):.1f} "
+        f"MB/s (min-max of 3 warm calls); {smi}")
+    sweep = {}
+    if name == CLASSES[0]:
+        for bf in DECODE_SWEEP:
+            r = rss_run("decode", x3a, back, warm["decode"], bf, runs=3)
+            require(same_wav(back, src), f"{name}: x3a_to_wav batch_frames={bf} differs from the input")
+            sweep[bf] = (r["times"], r["growth"])
+            log(f"# phase 7 decode sweep {name} batch_frames={bf}: "
+                + ", ".join(f"{t:.3f} s ({mb / t:.1f} MB/s)" for t in r["times"])
+                + f", peak RSS growth {r['growth']:.1f} MB ({r['how']}; a fresh process, 3 calls); {smi}")
+    for p in (src, x3a, back):
+        p.unlink()
+    return sweep
+
+
+def hour_rss_bound(params) -> float:
+    """Phase 7's bound on a conversion's peak RSS growth, in MB: half the
+    hour file's int16 samples (HOUR_FRAMES frames; the tail aside)."""
+    return HOUR_FRAMES * params.samples_per_frame * 2 / 1e6 / 2
+
+
+def write_hour_wav(path, params) -> np.ndarray:
+    """The hour file: HOUR_FRAMES frames of the hydrophone class in
+    CHUNK_FRAMES-frame chunks, each from its own seed, and a partial frame
+    of HOUR_TAIL samples; never whole in memory.  Returns the first 768
+    frames' samples."""
+    from x3_tpu_torch.utils.wav import WavWriter
+
+    S = params.samples_per_frame
+    head = None
+    with WavWriter(path, SAMPLE_RATE) as w:
+        for i, base in enumerate(range(0, HOUR_FRAMES, CHUNK_FRAMES)):
+            chunk = make_class_corpus("hydrophone", min(CHUNK_FRAMES, HOUR_FRAMES - base), S, seed=100 + i)
+            head = chunk[: N_FRAMES_CHECK * S].copy() if head is None else head
+            w.write(chunk)
+            del chunk
+        w.write(make_class_corpus("hydrophone", 1, S, seed=99)[:HOUR_TAIL])
+    return head
+
+
+def phase_files_hour(params, td: Path, smi: str, warm: dict) -> tuple[float, float]:
+    """Phase 7's hour file: both directions with bounded peak RSS, the head
+    against the CPU encode, verify/info, X3aReader and the damage tests.
+    Returns the peak RSS growths (MB) of the encode and the decode."""
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import files
+    from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
+    from x3_tpu_torch.errors import FrameHeaderInvalidPayloadCRC
+
+    S = params.samples_per_frame
+    n_frames, n = HOUR_FRAMES + 1, HOUR_FRAMES * S + HOUR_TAIL
+    src, x3a, back = td / "hour.wav", td / "hour.x3a", td / "hour.back.wav"
+    head = write_hour_wav(src, params)
+    mb = 2 * n / 1e6
+    bound = hour_rss_bound(params)
+
+    enc = rss_run("encode", src, x3a, warm["encode"])
+    dec = rss_run("decode", x3a, back, warm["decode"])
+    (t_enc,), (t_dec,), g_enc, g_dec = enc["times"], dec["times"], enc["growth"], dec["growth"]
+    require(same_wav(back, src), "hour: the roundtrip differs from the input")
+    back.unlink()
+    require(g_enc < bound and g_dec < bound,
+            f"hour: peak RSS growth {g_enc:.1f} MB (encode) / {g_dec:.1f} MB (decode), bound {bound:.1f} MB")
+    header = xt.build_archive_header(SAMPLE_RATE, params)
+    ref = header + xt.encode(head, params, device="cpu").data
+    with open(x3a, "rb") as f:
+        require(f.read(len(ref)) == ref, "hour: the first 768 frames differ from the CPU encode")
+    index = check_archive(x3a, n_frames, n, "hour")
+    log(f"# phase 7 hour: {n_frames} frames ({mb:.2f} MB int16, the last {HOUR_TAIL} samples) exact "
+        f"through wav_to_x3a {mb / t_enc:.1f} MB/s and x3a_to_wav {mb / t_dec:.1f} MB/s (one call each, "
+        f"each in a fresh process); peak RSS growth {g_enc:.1f} MB encode ({enc['how']}), {g_dec:.1f} MB "
+        f"decode ({dec['how']}; bound {bound:.1f} MB); "
+        f"head = CPU encode; verify_x3a ok; x3a_info = walk; {smi}")
+
+    # X3aReader: a range across a decode-batch boundary, the partial last
+    # frame, and a seek followed by a sequential read.
+    with files.X3aReader(x3a, device=DEV) as r:
+        B = DECODE_BATCH_FRAMES
+        start = B * S - 12345
+        require(np.array_equal(r.read_samples(start, 30000), wav_samples(src, start, 30000)),
+                "hour: X3aReader.read_samples across a batch boundary")
+        last = r.decode_frame_at(n_frames - 1)
+        require(len(last) == HOUR_TAIL and np.array_equal(last, wav_samples(src, HOUR_FRAMES * S, HOUR_TAIL)),
+                "hour: X3aReader.decode_frame_at of the partial last frame")
+        r.seek_frame(3 * B + 7)
+        for k in (3 * B + 7, 3 * B + 8):
+            require(np.array_equal(r.decode_next_frame(), wav_samples(src, k * S, S)),
+                    f"hour: X3aReader.decode_next_frame after seek_frame, frame {k}")
+
+    # Damage: one payload byte of a frame, then (that byte restored) one
+    # header byte of a later frame.
+    fp, fh = DAMAGED_FRAMES
+    bad = td / "hour.bad.x3a"
+    shutil.copyfile(x3a, bad)
+    x3a.unlink()
+    off = index[fp][0] + 10
+
+    def flip(pos: int) -> None:
+        with open(bad, "r+b") as f:
+            f.seek(pos)
+            byte = f.read(1)[0]
+            f.seek(pos)
+            f.write(bytes([byte ^ 0x10]))
+
+    flip(off)
+    try:
+        files.x3a_to_wav(bad, back, device=DEV)
+        raised = None
+    except FrameHeaderInvalidPayloadCRC as e:
+        raised = e
+    require(raised is not None, "hour: a flipped payload byte did not raise FrameHeaderInvalidPayloadCRC")
+    require(files.x3a_to_wav(bad, back, resync=True, device=DEV) == 1, "hour: resync did not count 1 error")
+    require(wav_length(back) == n - S and same_samples(back, 0, src, 0, fp * S)
+            and same_samples(back, fp * S, src, (fp + 1) * S, n - (fp + 1) * S),
+            f"hour: the resync WAV is not the input without frame {fp}")
+    back.unlink()
+    rep = files.verify_x3a(bad, device=DEV)
+    require(rep["frame_errors"] == 1 and rep["ok"] is False and rep["n_frames"] == n_frames,
+            f"hour: verify_x3a on a flipped payload byte reports {rep}")
+    flip(off)
+    flip(index[fh][0] - 20 + 5)
+    rep2 = files.verify_x3a(bad, device=DEV)
+    require(rep2["skipped_bytes"] > 0 and rep2["ok"] is False, f"hour: verify_x3a on a flipped header byte {rep2}")
+    bad.unlink()
+    log(f"# phase 7 hour damage: a payload byte of frame {fp} raises {type(raised).__name__}, resync "
+        f"counts 1 error and drops that frame alone, verify_x3a {rep['frame_errors']} frame error; a "
+        f"header byte of frame {fh}: verify_x3a skips {rep2['skipped_bytes']} bytes")
+    return g_enc, g_dec
+
+
+def phase_files(params, slices, kernels: dict, smi: str) -> None:
+    """Phase 7: the file layer on the card."""
+    from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
+
+    for mod in kernels.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    from x3_tpu_torch import files
+
+    with tempfile.TemporaryDirectory(prefix="x3_smoke_") as tmp:
+        td = Path(tmp)
+        # Two frames for the measuring processes' first, warming conversion.
+        warm_wav, warm_x3a = td / "warm.wav", td / "warm.x3a"
+        write_class_wav(warm_wav, slices[CLASSES[0]]["samples"][: 2 * params.samples_per_frame])
+        files.wav_to_x3a(warm_wav, warm_x3a, device=DEV)
+        warm = {"encode": (warm_wav, td / "warm.out.x3a"), "decode": (warm_x3a, td / "warm.out.wav")}
+        sweep = {}
+        for name in CLASSES:
+            sweep.update(phase_files_class(name, slices[name], td, smi, warm))
+        phase_files_hour(params, td, smi, warm)
+    launches = {k: mod.launch_count for k, mod in kernels.items()}
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched by the file layer")
+    bound = hour_rss_bound(params)
+    fits = {bf: min(times) for bf, (times, growth) in sweep.items() if growth < bound}
+    best = min(fits, key=fits.get) if fits else None
+    log(f"# phase 7 launches: {launches}; decode sweep: fastest within {bound:.1f} MB of peak RSS growth "
+        f"batch_frames={best} (the default is {DECODE_BATCH_FRAMES}); {time.perf_counter() - t0:.1f} s")
+
+
 def profile_route_kernels(params, reps: int = 20) -> None:
     """--profile: K4, K5 and K6 alone on phase 6's batch of each class at
     its fitting rungs, `reps` launches under torch.profiler: each kernel's
@@ -847,6 +1201,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rss-child"]:  # phase 7's measuring process
+        return rss_child(sys.argv[2:])
     # Phase 1: device.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
@@ -900,6 +1256,9 @@ def main() -> int:
     route_launches, route_times = phase_routes(params, slices, errs, route_kernels)
     launches.update(route_launches)
     first.update(route_times)
+
+    # Phase 7: the file layer; its own launch counts.
+    phase_files(params, slices, kernels, "; ".join(smi))
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": launches[k], "max_abs_err": errs.max.get(k, 0),

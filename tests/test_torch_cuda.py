@@ -338,3 +338,31 @@ def test_pack_routes_on_cuda_match_cpu(cuda, mode, env):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@pytest.mark.parametrize("params,batch", [(GEOMETRIES[0], 3), (GEOMETRIES[1], None)], ids=["tiny-b3", "default"])
+def test_file_roundtrip_on_cuda_matches_cpu(cuda, tmp_path, params, batch):
+    """wav_to_x3a on the card gives the CPU archive byte for byte, and
+    x3a_to_wav, verify_x3a and X3aReader on the card give the input back,
+    through K1-K3."""
+    from x3_tpu_torch import files
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda, encode_cuda
+    from x3_tpu_torch.utils.wav import write_wav
+
+    S = params.samples_per_frame
+    wav = _mixed(np.random.default_rng(21), S * 7 + 5)
+    src = tmp_path / "in.wav"
+    write_wav(src, wav, 96000)
+    for mod in (crc_cuda, decode_cuda, encode_cuda):
+        mod.launch_count = 0
+    files.wav_to_x3a(src, tmp_path / "gpu.x3a", params, batch_frames=batch, device=cuda)
+    files.wav_to_x3a(src, tmp_path / "cpu.x3a", params, batch_frames=batch, device="cpu")
+    assert (tmp_path / "gpu.x3a").read_bytes() == (tmp_path / "cpu.x3a").read_bytes()
+    assert files.x3a_to_wav(tmp_path / "gpu.x3a", tmp_path / "back.wav", batch_frames=batch, device=cuda) == 0
+    assert (tmp_path / "back.wav").read_bytes() == src.read_bytes()
+    report = files.verify_x3a(tmp_path / "gpu.x3a", batch_frames=batch, device=cuda)
+    assert report["ok"] and report["n_frames"] == 8 and report["n_samples_ok"] == len(wav)
+    with files.X3aReader(tmp_path / "gpu.x3a", batch_frames=batch, device=cuda) as r:
+        np.testing.assert_array_equal(r.read_samples(S - 3, 2 * S), wav[S - 3 : 3 * S - 3])
+        np.testing.assert_array_equal(r.decode_frame_at(7), wav[7 * S :])
+    assert min(crc_cuda.launch_count, decode_cuda.launch_count, encode_cuda.launch_count) > 0

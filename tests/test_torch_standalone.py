@@ -1,10 +1,12 @@
 """x3_tpu_torch's own copies of x3_tpu's host modules against the
 originals (parameters, constants, errors, the host CRC and the GF(2) CRC
-constants, the archive container, the frame headers and the assembly),
-and a fresh interpreter in which importing the port and every module of
-it leaves no jax and no x3_tpu in sys.modules."""
+constants, the archive container and its file walkers, the frame headers
+and the assembly, the background I/O and the WAV helpers), and a fresh
+interpreter in which importing the port and every module of it leaves no
+jax and no x3_tpu in sys.modules."""
 
 import dataclasses
+import io
 import os
 import subprocess
 import sys
@@ -187,16 +189,26 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
     mods = sorted(
         "x3_tpu_torch." + ".".join(p.relative_to(REPO / "x3_tpu_torch").with_suffix("").parts)
         for p in (REPO / "x3_tpu_torch").rglob("*.py")
-        if p.name != "__init__.py"
+        if p.name not in ("__init__.py", "__main__.py")  # __main__ runs the CLI
     )
     assert {"x3_tpu_torch.models.encoder", "x3_tpu_torch.ops.pack_walk_cuda",
-            "x3_tpu_torch.archive", "x3_tpu_torch.tables"} <= set(mods)
+            "x3_tpu_torch.archive", "x3_tpu_torch.tables", "x3_tpu_torch.engine",
+            "x3_tpu_torch.streaming", "x3_tpu_torch.files", "x3_tpu_torch.channel",
+            "x3_tpu_torch.cli", "x3_tpu_torch.wav_to_str", "x3_tpu_torch.utils.io",
+            "x3_tpu_torch.utils.wav", "x3_tpu_torch.utils.xmlmeta"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "import x3_tpu_torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import bench\n"
+        "import contextlib, io\n"
+        "from x3_tpu_torch.cli import main\n"
+        "try:\n"
+        "    with contextlib.redirect_stdout(io.StringIO()):\n"
+        "        main(['--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "bad = [m for m in sys.modules if m in ('jax', 'x3_tpu') or m.startswith(('jax.', 'x3_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n"
@@ -207,3 +219,164 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def _walk_file(mod, path, start, resync):
+    with open(path, "rb") as f:
+        try:
+            return [(off, dataclasses.astuple(h)) for off, h in mod.walk_frames_file(f, start, resync)]
+        except Exception as e:  # noqa: BLE001 - the class and message are compared
+            return (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("damage", ["clean", "header-crc", "key", "payload-len", "truncated", "bad-magic",
+                                    "garbage"])
+def test_file_walkers_copy_on_a_corrupt_archive(tmp_path, damage):
+    """The archive's file walkers (header parse, frame walk with and
+    without resync, sync scan in small windows) and the payload-CRC check
+    over the same damaged archive: the same results, or the same error
+    class and message."""
+    import x3_tpu
+    from x3_tpu import archive as ref
+
+    from x3_tpu_torch import archive as port
+
+    p = Parameters(block_len=4, blocks_per_frame=8)
+    header = ref.build_archive_header(96000, p)
+    data = bytearray(header + x3_tpu.encode(make_mixed(np.random.default_rng(5), 32 * 6 + 3), p,
+                                            engine="numpy").data)
+    second = len(header) + 20 + int.from_bytes(data[len(header) + 6 : len(header) + 8], "big")
+    if damage == "header-crc":
+        data[second + 17] ^= 0xFF
+    elif damage == "key":
+        data[second] = 0x00
+    elif damage == "payload-len":
+        data[second + 6 : second + 8] = (0x7000).to_bytes(2, "big")
+    elif damage == "truncated":
+        data = data[:-7]
+    elif damage == "bad-magic":
+        data[3] ^= 0x01
+    elif damage == "garbage":
+        data[second:second] = b"\x78\x33" + bytes(range(50))
+    path = tmp_path / "a.x3a"
+    path.write_bytes(bytes(data))
+
+    def header_of(mod):
+        with open(path, "rb") as f:
+            try:
+                spec, size = mod.read_archive_header_file(f)
+                return spec.sample_rate, dataclasses.asdict(spec.params), spec.channels, size
+            except Exception as e:  # noqa: BLE001
+                return type(e).__name__, str(e)
+
+    assert header_of(port) == header_of(ref)
+    for resync in (False, True):
+        assert _walk_file(port, path, len(header), resync) == _walk_file(ref, path, len(header), resync)
+    with open(path, "rb") as f:
+        for start in (0, len(header) + 1, second + 1, len(data) - 19):
+            for chunk in (7, 64, 1 << 20):
+                assert port.find_sync_file(f, start, chunk=chunk) == ref.find_sync_file(f, start, chunk=chunk)
+    index = list(ref.walk_frames(bytes(data), len(header), resync=True))
+    payloads = [bytes(data[off : off + h.payload_len]) for off, h in index]
+    want = [h.payload_crc ^ (i == 1) for i, (_, h) in enumerate(index)]
+    np.testing.assert_array_equal(port.verify_payload_crcs_parts(payloads, want),
+                                  ref.verify_payload_crcs_parts(payloads, want))
+    assert port.verify_payload_crcs_parts([], []).shape == (0,)
+
+
+class _FailingFile(io.BytesIO):
+    def __init__(self, fail_at: int):
+        super().__init__()
+        self.calls, self.fail_at = 0, fail_at
+
+    def write(self, b):
+        self.calls += 1
+        if self.calls == self.fail_at:
+            raise OSError(28, "No space left on device")
+        return super().write(b)
+
+
+def _io_run(mod, blocks, fail_at):
+    f = _FailingFile(fail_at)
+    w = mod.AsyncWriter(f, depth=2)
+    events = []
+    for b in blocks:
+        try:
+            w.write(b)
+        except OSError as e:
+            events.append(("write", str(e)))
+    for step in (w.drain, w.close, w.close):
+        try:
+            step()
+        except OSError as e:
+            events.append((step.__name__, str(e)))
+    # Whether a write() call already sees the error depends on the thread's
+    # pace; drain() and close() always raise it.
+    return f.getvalue(), [e for e in events if e[0] != "write"]
+
+
+def _prefetch(mod, n, fail_at, depth):
+    def src():
+        for i in range(n):
+            if i == fail_at:
+                raise ValueError(f"bad item {i}")
+            yield i
+
+    got = []
+    try:
+        for x in mod.prefetch_iter(src(), depth=depth):
+            got.append(x)
+    except ValueError as e:
+        got.append(str(e))
+    return got
+
+
+@pytest.mark.parametrize("fail_at", [0, 1, 3])
+def test_io_copies(tmp_path, fail_at):
+    """AsyncWriter writes the same bytes and raises the same write error at
+    the same calls; prefetch_iter yields the same items and raises the
+    source's error after them; open_overwrite does not truncate."""
+    from x3_tpu.utils import io as ref
+
+    from x3_tpu_torch.utils import io as port
+
+    blocks = [bytes([i]) * (i + 1) for i in range(6)]
+    assert _io_run(port, blocks, fail_at) == _io_run(ref, blocks, fail_at)
+    for depth in (1, 2):
+        for n in (0, 5):
+            assert _prefetch(port, n, fail_at, depth) == _prefetch(ref, n, fail_at, depth)
+    it = port.prefetch_iter(iter(range(100)), depth=1)
+    assert next(it) == 0
+    it.close()  # abandoning the generator stops its thread
+    for mod in (port, ref):
+        path = tmp_path / f"{mod.__name__}.bin"
+        path.write_bytes(b"0123456789")
+        with mod.open_overwrite(path) as f:
+            f.write(b"ab")
+        assert path.read_bytes() == b"ab23456789"
+
+
+@pytest.mark.parametrize("n,rate", [(0, 8000), (1, 44100), (12345, 96000)])
+def test_wav_copies(tmp_path, n, rate):
+    """write_wav and WavWriter (fed in uneven chunks, over a longer earlier
+    file) give the original's bytes, and read_wav reads them back."""
+    from x3_tpu.utils import wav as ref
+
+    from x3_tpu_torch.utils import wav as port
+
+    samples = np.random.default_rng(n).integers(-32768, 32768, n).astype(np.int16)
+    ref.write_wav(tmp_path / "ref.wav", samples, rate)
+    port.write_wav(tmp_path / "port.wav", samples, rate)
+    want = (tmp_path / "ref.wav").read_bytes()
+    assert (tmp_path / "port.wav").read_bytes() == want
+    out = tmp_path / "inc.wav"
+    out.write_bytes(b"x" * (len(want) + 999))
+    with port.WavWriter(out, rate) as w:
+        for part in np.array_split(samples, 4):
+            w.write(part)
+    assert w.samples_written == n
+    assert out.read_bytes() == want
+    got, got_rate = port.read_wav(out)
+    assert got_rate == rate and got.dtype == np.int16
+    np.testing.assert_array_equal(got, ref.read_wav(out)[0])
+    np.testing.assert_array_equal(got, samples)

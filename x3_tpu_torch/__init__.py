@@ -10,7 +10,9 @@ for NVIDIA Hopper (csrc/*.cu, built with nvcc on first use):
   (models/decoder.py);
 * `ops.encode_kernel.encode_frames(..., pack_mode=...)` — one encode batch
   by any of the JAX package's pack routes ("block", "block_pallas",
-  "fused_pallas", "segment").
+  "fused_pallas", "segment");
+* `wav_to_x3a`, `x3a_to_wav`, `x3a_info`, `verify_x3a` and `X3aReader` —
+  the file layer (files.py), and `python -m x3_tpu_torch`, its CLI.
 
 device="cuda" runs the kernels (and raises when there is no GPU);
 device="cpu" runs their plain PyTorch versions.  The package shares no
@@ -29,7 +31,14 @@ __all__ = [
     "decode_frames_batch",
     "build_archive_header",
     "walk_frames",
+    "wav_to_x3a",
+    "x3a_to_wav",
+    "x3a_info",
+    "verify_x3a",
+    "X3aReader",
 ]
+
+_FILES = ("wav_to_x3a", "x3a_to_wav", "x3a_info", "verify_x3a", "X3aReader")
 
 from .archive import build_archive_header, walk_frames
 from .params import Parameters, X3aSpec
@@ -45,4 +54,8 @@ def __getattr__(name):
         from .models import decoder
 
         return getattr(decoder, name)
+    if name in _FILES:
+        from . import files
+
+        return getattr(files, name)
     raise AttributeError(name)

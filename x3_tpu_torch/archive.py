@@ -1,6 +1,8 @@
 """Archive container (x3_tpu.archive): the frame header writer and reader,
 the archive header build and parse, and the frame walk with its optional
-sync-word rescue, which skips a corrupt frame instead of stopping."""
+sync-word rescue, which skips a corrupt frame instead of stopping; over
+bytes in memory and over an open file (headers read with seeks, so memory
+stays bounded on any archive size); and the host payload-CRC check."""
 
 from __future__ import annotations
 
@@ -142,3 +144,82 @@ def find_sync(data: bytes, start: int) -> int:
     stored = (arr[cand + 16].astype(np.uint16) << 8) | arr[cand + 17]
     ok = np.nonzero(crcs == stored)[0]
     return int(cand[ok[0]]) if len(ok) else -1
+
+
+def read_archive_header_file(f) -> tuple[X3aSpec, int]:
+    """Parse the archive header of an open binary file (bounded reads).
+    Returns (spec, header size in bytes)."""
+    f.seek(0)
+    head = f.read(constants.ARCHIVE_ID_LEN + constants.FRAME_HEADER_LENGTH)
+    if head[: constants.ARCHIVE_ID_LEN] != constants.ARCHIVE_ID:
+        raise ArchiveHeaderXMLInvalidKey(f"bad magic {head[:8]!r}")
+    header = read_frame_header(head[constants.ARCHIVE_ID_LEN :])
+    sample_rate, params = parse_xml(f.read(header.payload_len))
+    spec = X3aSpec(sample_rate=sample_rate, params=params, channels=header.channels)
+    return spec, constants.ARCHIVE_ID_LEN + constants.FRAME_HEADER_LENGTH + header.payload_len
+
+
+def walk_frames_file(f, start: int, resync: bool = False):
+    """walk_frames over an open binary file: yields (payload_offset,
+    FrameHeader), reading only the 20-byte headers and seeking past the
+    payloads.  The same errors as walk_frames."""
+    f.seek(0, 2)
+    n = f.tell()
+    pos = start
+    while n - pos > constants.FRAME_HEADER_LENGTH:
+        f.seek(pos)
+        try:
+            header = read_frame_header(f.read(constants.FRAME_HEADER_LENGTH))
+        except Exception:
+            if not resync:
+                raise
+            pos = find_sync_file(f, pos + 1, n)
+            if pos < 0:
+                return
+            continue
+        payload_off = pos + constants.FRAME_HEADER_LENGTH
+        if n - payload_off < header.payload_len:
+            if not resync:
+                raise FrameHeaderInvalidPayloadLen(
+                    f"frame at {pos}: payload {header.payload_len} B overruns "
+                    f"the remaining {n - payload_off} B"
+                )
+            pos = find_sync_file(f, pos + 1, n)
+            if pos < 0:
+                return
+            continue
+        yield payload_off, header
+        pos = payload_off + header.payload_len
+
+
+def find_sync_file(f, start: int, n: int | None = None, chunk: int = 1 << 20) -> int:
+    """find_sync over an open file, in windows of `chunk` bytes."""
+    if n is None:
+        f.seek(0, 2)
+        n = f.tell()
+    pos = start
+    while pos < n:
+        f.seek(pos)
+        data = f.read(chunk + constants.FRAME_HEADER_LENGTH)
+        if len(data) < constants.FRAME_HEADER_LENGTH:
+            return -1
+        r = find_sync(data, 0)
+        if r >= 0:
+            return pos + r
+        if pos + len(data) >= n:
+            return -1
+        pos += chunk
+    return -1
+
+
+def verify_payload_crcs_parts(payloads, want_crcs) -> np.ndarray:
+    """bool [len(payloads)]: True where a payload's CRC16 equals the
+    expected value (the host CRC over zero-padded rows)."""
+    if not payloads:
+        return np.zeros(0, bool)
+    rows = np.zeros((len(payloads), max(len(p) for p in payloads)), dtype=np.uint8)
+    lens = np.zeros(len(payloads), dtype=np.int64)
+    for i, p in enumerate(payloads):
+        rows[i, : len(p)] = np.frombuffer(p, dtype=np.uint8)
+        lens[i] = len(p)
+    return crc16_many(rows, lens) == np.asarray(want_crcs, dtype=np.uint16)

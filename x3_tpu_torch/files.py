@@ -1,0 +1,414 @@
+"""File-level API of the port (x3_tpu.files): wav_to_x3a, x3a_to_wav,
+x3a_info, verify_x3a and the random-access X3aReader.
+
+Every conversion runs the port's batched pipeline on `device`: encode
+through `encode` (kernels K2 and K1 on "cuda"), decode through
+`decode_frames_batch(..., check_crcs=...)` (K3 and K1), with the plain
+PyTorch versions on "cpu".  Memory is bounded in both directions: encode
+reads the WAV a batch at a time; decode walks the frame headers with
+seeks, reads the payloads a batch at a time and appends to the WAV.
+
+As in the reference, header and payload CRC mismatches raise, and a frame
+that fails to decode is counted and stops the decode.  With resync=True
+corrupt frames are skipped by the sync scanner instead.  Archives, WAVs,
+reports and error classes are those of x3_tpu.files.
+"""
+
+from __future__ import annotations
+
+import wave
+
+import numpy as np
+
+from . import archive, constants
+from .device import resolve_device
+from .engine import resolve_batch_frames, resolve_engine
+from .errors import FrameHeaderInvalidPayloadCRC, X3Error, decode_error
+from .models.decoder import decode_frames_batch
+from .models.encoder import EncodeResult
+from .params import Parameters, X3aSpec
+from .streaming import StreamEncoder, check_mono16
+from .utils.io import prefetch_iter
+from .utils.wav import WavWriter
+
+
+def wav_to_x3a(
+    wav_filename,
+    x3a_filename,
+    params: Parameters | None = None,
+    engine: str = "auto",
+    verbose: bool = False,
+    batch_frames: int | None = None,
+    *,
+    device="cuda",
+) -> EncodeResult:
+    """Convert a mono 16-bit .wav file to an .x3a archive.  The WAV is read
+    and encoded in batch_frames-frame chunks."""
+    engine = resolve_engine(engine)
+    batch_frames = resolve_batch_frames(batch_frames, engine, decode=False)
+    device = resolve_device(device)
+    params = params or Parameters()
+    with wave.open(str(wav_filename), "rb") as w:
+        check_mono16(w)
+        rate = w.getframerate()
+        with StreamEncoder(x3a_filename, rate, params, engine, batch_frames, device=device) as enc:
+            chunk_samples = batch_frames * params.samples_per_frame
+
+            def _chunks():
+                while True:
+                    raw = w.readframes(chunk_samples)
+                    if not raw:
+                        return
+                    yield raw
+
+            # The next chunk's read overlaps this chunk's encode; the
+            # output side overlaps through StreamEncoder's AsyncWriter.
+            for raw in prefetch_iter(_chunks(), depth=1):
+                enc.write(np.frombuffer(raw, dtype="<i2"))
+            result = enc.close()
+    if verbose:
+        print(result.format_stats())
+    return result
+
+
+def _decode_payload_batch(payloads, headers, params: Parameters, resync: bool, device, base: int = 0):
+    """Decode one batch of payloads with their CRCs checked on `device`.
+
+    Returns (outs list, errs int array of per-frame decode codes).  Without
+    resync a payload-CRC mismatch raises, naming the frame (`base` is the
+    batch's first frame); with resync it marks the frame with code 4."""
+    ns = [h.samples for h in headers]
+    want_crcs = [h.payload_crc for h in headers]
+    outs, errs, crc_ok = decode_frames_batch(payloads, ns, params, check_crcs=want_crcs, device=device)
+    if not crc_ok.all():
+        if not resync:
+            bad = int(np.nonzero(~crc_ok)[0][0])
+            raise FrameHeaderInvalidPayloadCRC(f"frame {base + bad} payload CRC mismatch")
+        errs = np.where(~crc_ok, 4, errs)
+    return outs, errs
+
+
+def _read_payloads(f, batch):
+    out = []
+    for off, h in batch:
+        f.seek(off)
+        out.append(f.read(h.payload_len))
+    return out
+
+
+def _batches(walker, batch_frames: int):
+    """Lists of up to batch_frames (payload_offset, FrameHeader) entries."""
+    while True:
+        batch = []
+        for entry in walker:
+            batch.append(entry)
+            if len(batch) >= batch_frames:
+                break
+        if not batch:
+            return
+        yield batch
+
+
+def x3a_to_wav(
+    x3a_filename,
+    wav_filename,
+    engine: str = "auto",
+    verbose: bool = False,
+    resync: bool = False,
+    batch_frames: int | None = None,
+    *,
+    device="cuda",
+) -> int:
+    """Convert an .x3a archive to a .wav file; returns the number of frame
+    errors.  Frames are indexed by header-only seeks and decoded a batch at
+    a time into an incrementally written WAV."""
+    engine = resolve_engine(engine)
+    batch_frames = resolve_batch_frames(batch_frames, engine, decode=True)
+    device = resolve_device(device)
+    frame_errors = 0
+    with open(x3a_filename, "rb") as f:
+        spec, header_size = archive.read_archive_header_file(f)
+        if verbose:
+            print(f"sample rate: {spec.sample_rate}")
+            print(f"block length: {spec.params.block_len}")
+            codes = spec.params.codes
+            print(f"Rice codes: RICE{codes[0]},RICE{codes[1]},RICE{codes[2]},BFP")
+            t = spec.params.thresholds
+            print(f"thresholds: {t[0]},{t[1]},{t[2]}")
+        with WavWriter(wav_filename, spec.sample_rate) as wout:
+            base = 0
+            for batch in _batches(archive.walk_frames_file(f, header_size, resync=resync), batch_frames):
+                outs, errs = _decode_payload_batch(
+                    _read_payloads(f, batch), [h for _, h in batch], spec.params, resync, device, base
+                )
+                if not np.any(errs):
+                    wout.write(np.concatenate(outs) if len(outs) > 1 else outs[0])
+                else:
+                    for i, (out, err) in enumerate(zip(outs, errs)):
+                        if err:
+                            frame_errors += 1
+                            print(f"Frame error: frame {base + i} failed to decode")
+                            if not resync:
+                                return frame_errors  # the reference stops at the first bad frame
+                            continue
+                        wout.write(out)
+                base += len(batch)
+    return frame_errors
+
+
+def x3a_info(x3a_filename, *, device="cuda") -> dict:
+    """Archive metadata and frame statistics from the header index alone:
+    no payload byte is read or decoded, so `device` is only checked.  The
+    walk resyncs past damage (the statistics then cover the frames it can
+    walk; verify_x3a reports the damage)."""
+    resolve_device(device)
+    with open(x3a_filename, "rb") as f:
+        spec, header_size = archive.read_archive_header_file(f)
+        index = list(archive.walk_frames_file(f, header_size, resync=True))
+        f.seek(0, 2)
+        size = f.tell()
+    n_samples = int(sum(h.samples for _, h in index))
+    payload_bytes = int(sum(h.payload_len for _, h in index))
+    pcm_bytes = 2 * n_samples
+    return {
+        "sample_rate": spec.sample_rate,
+        "block_len": spec.params.block_len,
+        "codes": list(spec.params.codes),
+        "thresholds": list(spec.params.thresholds),
+        "n_frames": len(index),
+        "n_samples": n_samples,
+        "duration_s": round(n_samples / spec.sample_rate, 3) if spec.sample_rate else None,
+        "archive_bytes": size,
+        "archive_header_bytes": header_size,
+        "frame_header_bytes": len(index) * constants.FRAME_HEADER_LENGTH,
+        "payload_bytes": payload_bytes,
+        "pcm_bytes": pcm_bytes,
+        "compression_ratio": round(pcm_bytes / size, 3) if size else 0.0,
+    }
+
+
+def verify_x3a(
+    x3a_filename,
+    engine: str = "auto",
+    batch_frames: int | None = None,
+    verbose: bool = False,
+    *,
+    device="cuda",
+) -> dict:
+    """Check an archive without writing output: every frame is walked with
+    the resync scanner (so damage past the first bad frame is found too),
+    every payload CRC is checked and every frame is decoded on `device`.
+
+    Returns a report; report["ok"] is True when there are no frame errors
+    and every byte after the archive header belongs to a valid frame (bytes
+    the scanner skipped, or an unwalkable tail, count as skipped_bytes)."""
+    engine = resolve_engine(engine)
+    batch_frames = resolve_batch_frames(batch_frames, engine, decode=True)
+    device = resolve_device(device)
+    n_frames = 0
+    n_samples_ok = 0
+    frame_errors = 0
+    skipped = 0
+    with open(x3a_filename, "rb") as f:
+        try:
+            spec, header_size = archive.read_archive_header_file(f)
+        except X3Error as e:
+            # A damaged archive header still gives a report: inspecting
+            # damaged files is what this is for.
+            return {
+                "ok": False,
+                "n_frames": 0,
+                "n_samples_ok": 0,
+                "frame_errors": 0,
+                "skipped_bytes": 0,
+                "engine": engine,
+                "reason": f"archive header invalid: {e}",
+            }
+        f.seek(0, 2)
+        size = f.tell()
+        expect = header_size  # where the next frame header should start
+        for batch in _batches(archive.walk_frames_file(f, header_size, resync=True), batch_frames):
+            for off, h in batch:
+                hstart = off - constants.FRAME_HEADER_LENGTH
+                if hstart != expect:
+                    skipped += hstart - expect
+                    if verbose:
+                        print(f"skipped {hstart - expect} bytes at {expect} (sync rescue)")
+                expect = off + h.payload_len
+            _, errs = _decode_payload_batch(
+                _read_payloads(f, batch), [h for _, h in batch], spec.params, True, device
+            )
+            for i, ((_, h), err) in enumerate(zip(batch, errs)):
+                if err:
+                    frame_errors += 1
+                    if verbose:
+                        print(f"Frame error: frame {n_frames + i} failed to decode")
+                else:
+                    n_samples_ok += h.samples
+            n_frames += len(batch)
+        if size - expect > 0:
+            skipped += size - expect  # trailing bytes no valid frame covers
+            if verbose:
+                print(f"skipped {size - expect} trailing bytes at {expect}")
+    return {
+        "ok": frame_errors == 0 and skipped == 0,
+        "n_frames": n_frames,
+        "n_samples_ok": int(n_samples_ok),
+        "frame_errors": frame_errors,
+        "skipped_bytes": int(skipped),
+        "engine": engine,
+    }
+
+
+class X3aReader:
+    """Frame-by-frame reader with random access.
+
+    Holds the header index (20 B a frame) and the current decoded batch;
+    payloads are read with seeks a batch at a time."""
+
+    def __init__(self, filename, engine: str = "auto", batch_frames: int | None = None, *, device="cuda"):
+        self._engine = resolve_engine(engine)
+        self._batch_frames = resolve_batch_frames(batch_frames, self._engine, decode=True)
+        self._device = resolve_device(device)
+        self._f = open(filename, "rb")
+        try:
+            self._spec, header_size = archive.read_archive_header_file(self._f)
+            self._index = list(archive.walk_frames_file(self._f, header_size))
+        except BaseException:
+            self._f.close()
+            raise
+        self._cursor = 0
+        self._cache: dict[int, np.ndarray | None] = {}
+        self.frame_errors = 0
+        self._stopped = False
+
+    @classmethod
+    def open(cls, filename, **kw) -> "X3aReader":
+        return cls(filename, **kw)
+
+    def close(self) -> None:
+        self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    @property
+    def spec(self) -> X3aSpec:
+        return self._spec
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def _decode_batch(self, base: int):
+        batch = self._index[base : base + self._batch_frames]
+        # A payload-CRC mismatch raises; a decode error becomes a None entry.
+        outs, errs = _decode_payload_batch(
+            _read_payloads(self._f, batch), [h for _, h in batch], self._spec.params, False,
+            self._device, base,
+        )
+        self._cache = {}  # only the current batch stays resident
+        for i, (out, err) in enumerate(zip(outs, errs)):
+            self._cache[base + i] = None if err else out
+
+    def decode_next_frame(self) -> np.ndarray | None:
+        """The next frame's samples, or None at the end and after the first
+        frame that fails to decode (the reference's behaviour)."""
+        if self._stopped or self._cursor >= len(self._index):
+            return None
+        i = self._cursor
+        if i not in self._cache:
+            self._decode_batch((i // self._batch_frames) * self._batch_frames)
+        # The entry stays resident until the next batch replaces the cache,
+        # so interleaved decode_frame_at calls do not decode the batch again.
+        out = self._cache[i]
+        if out is None:
+            self.frame_errors += 1
+            print(f"Frame error: frame {i} failed to decode")
+            self._stopped = True
+            return None
+        self._cursor += 1
+        return out
+
+    def tell_frame(self) -> int:
+        """Index of the frame the next decode_next_frame() returns."""
+        return self._cursor
+
+    def seek_frame(self, i: int) -> None:
+        """Put the sequential cursor at frame i; this clears the
+        stop-at-the-first-bad-frame latch."""
+        if not 0 <= i <= len(self._index):
+            raise IndexError(f"frame {i} out of range 0..{len(self._index)}")
+        self._cursor = i
+        self._stopped = False
+
+    @property
+    def sample_offsets(self) -> np.ndarray:
+        """int64 [n_frames + 1] cumulative sample offsets, from the header
+        index alone."""
+        if not hasattr(self, "_offsets"):
+            counts = np.asarray([h.samples for _, h in self._index], dtype=np.int64)
+            self._offsets = np.concatenate([[0], np.cumsum(counts)])
+        return self._offsets
+
+    @property
+    def n_samples(self) -> int:
+        """Samples in the archive, from the header index alone."""
+        return int(self.sample_offsets[-1])
+
+    def decode_frame_at(self, i: int) -> np.ndarray:
+        """Frame i's samples, decoded with the batch around it.  Raises the
+        frame's own X3Error on damage; damage to another frame of the batch
+        does not reach it (frame i is then decoded alone)."""
+        if not 0 <= i < len(self._index):
+            raise IndexError(f"frame {i} out of range 0..{len(self._index) - 1}")
+        if i not in self._cache or self._cache[i] is None:
+            try:
+                self._decode_batch((i // self._batch_frames) * self._batch_frames)
+            except X3Error:
+                # Another frame of the batch raised (its payload CRC) before
+                # the cache was replaced: drop the previous batch's entries
+                # so that a sweep over an archive with a bad frame in every
+                # batch keeps one frame resident, not one a good frame.
+                self._cache = {}
+                self._decode_single(i)
+        out = self._cache.get(i)
+        if out is None:
+            self._decode_single(i)  # raises the frame's own error
+            out = self._cache[i]
+        return out
+
+    def _decode_single(self, i: int) -> None:
+        """Decode frame i alone, raising its own error class: the payload
+        CRC is checked on the host first, then the frame is decoded on the
+        device and a decode code raises its class."""
+        (payload,) = _read_payloads(self._f, self._index[i : i + 1])
+        h = self._index[i][1]
+        if not archive.verify_payload_crcs_parts([payload], [h.payload_crc])[0]:
+            raise FrameHeaderInvalidPayloadCRC(f"frame {i} payload CRC mismatch")
+        outs, errs = decode_frames_batch([payload], [h.samples], self._spec.params, device=self._device)
+        if errs[0]:
+            raise decode_error(int(errs[0]), f"frame {i} failed to decode")
+        self._cache[i] = outs[0]
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        if i < 0:
+            i += len(self._index)
+        return self.decode_frame_at(i)
+
+    def read_samples(self, start: int, count: int) -> np.ndarray:
+        """The samples [start, start + count), decoding only the frames
+        that hold them."""
+        off = self.sample_offsets
+        total = int(off[-1])
+        start = max(0, min(start, total))
+        stop = max(start, min(start + count, total))
+        if start == stop:
+            return np.zeros(0, np.int16)
+        f0 = int(np.searchsorted(off, start, side="right")) - 1
+        f1 = int(np.searchsorted(off, stop, side="left"))  # exclusive
+        chunk = np.concatenate([self.decode_frame_at(i) for i in range(f0, f1)])
+        base = int(off[f0])
+        return chunk[start - base : stop - base]

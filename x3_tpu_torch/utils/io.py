@@ -1,0 +1,134 @@
+"""Bounded background file I/O for the file converters (x3_tpu.utils.io).
+
+`write(2)`, `read(2)` and the device calls release the GIL, so a writer
+thread with a bounded queue (AsyncWriter) and a read-ahead thread
+(prefetch_iter) overlap file I/O with the conversion wherever a spare core
+exists or the disk blocks.  The bytes written and the errors raised are
+those of plain synchronous I/O: a failed write raises at the next
+write()/drain()/close(), before the converter returns.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+
+
+def open_overwrite(path):
+    """Open `path` for writing without O_TRUNC.
+
+    Truncating a large existing output at open() releases its blocks
+    synchronously; instead the file is opened in place and the caller
+    truncates it to its final length just before closing.  Until then a
+    shorter rewrite leaves stale bytes past the new end, so callers must
+    truncate on the success path (a conversion that raises leaves partial
+    output either way)."""
+    fd = os.open(str(path), os.O_WRONLY | os.O_CREAT, 0o666)
+    return os.fdopen(fd, "wb")
+
+
+class AsyncWriter:
+    """Write blocks to a file object from a background thread, in order.
+
+    Single producer: the converters call write() from one thread.  Memory
+    stays bounded by `depth` pending blocks.  The writer thread's exception
+    is raised again on the next write()/drain()/close(); close() drains but
+    does not close the underlying file (its owner may still patch headers,
+    such as a WAV's sizes)."""
+
+    def __init__(self, f, depth: int = 2):
+        self._f = f
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._exc: BaseException | None = None
+        self._closed = False
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self) -> None:
+        while True:
+            blk = self._q.get()
+            try:
+                # A write error poisons the writer: later blocks are dropped
+                # (resuming after a lost block would corrupt the stream) and
+                # every later producer call raises it.
+                if blk is not None and self._exc is None:
+                    self._f.write(blk)
+            except BaseException as e:  # raised again on the producer's thread
+                self._exc = e
+            finally:
+                self._q.task_done()
+            if blk is None:
+                return
+
+    def _check(self) -> None:
+        if self._exc is not None:
+            raise self._exc
+
+    def write(self, data) -> None:
+        self._check()
+        self._q.put(data)
+
+    def drain(self) -> None:
+        """Block until every queued block is written; raise a write error."""
+        self._q.join()
+        self._check()
+
+    def close(self) -> None:
+        """Drain, stop the thread, and raise any pending write error."""
+        if not self._closed:
+            self._closed = True
+            self._q.put(None)
+            self._t.join()
+        self._check()
+
+
+def prefetch_iter(src, depth: int = 2):
+    """Yield `src`'s items with up to `depth` of them read ahead on a
+    background thread: the input-side mirror of AsyncWriter.
+
+    Order is kept; an exception of the source is raised at the consuming
+    point, after every item read before it.  Abandoning the generator stops
+    the thread at the source's next item."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def run() -> None:
+        try:
+            for item in src:
+                while not stop.is_set():
+                    try:
+                        q.put((False, item), timeout=0.05)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+            q.put((None, None))
+        except BaseException as e:  # raised again on the consumer's thread
+            if not stop.is_set():
+                q.put((True, e))
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    try:
+        while True:
+            kind, val = q.get()
+            if kind is None:
+                return
+            if kind:
+                raise val
+            yield val
+    finally:
+        stop.set()
+        # Unblock a producer waiting on a full queue; bound the clean-up
+        # rather than hang on a source that never yields again (the thread
+        # is a daemon either way).
+        deadline = time.monotonic() + 1.0
+        while t.is_alive() and time.monotonic() < deadline:
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                pass
+            t.join(timeout=0.02)

@@ -1,0 +1,89 @@
+"""Mono 16-bit WAV read and write on the host (x3_tpu.utils.wav): the
+standard library's `wave` module with bulk numpy frame reads, and an
+incremental writer whose sample stream goes through a bounded background
+thread."""
+
+from __future__ import annotations
+
+import struct
+import wave
+
+import numpy as np
+
+from ..errors import MoreThanOneChannel, X3Error
+from .io import AsyncWriter, open_overwrite
+
+
+def read_wav(path) -> tuple[np.ndarray, int]:
+    """Read a WAV file; returns (int16 samples, sample_rate).  Anything but
+    16-bit mono raises, as in the reference."""
+    with wave.open(str(path), "rb") as w:
+        if w.getsampwidth() != 2:
+            raise X3Error(f"only 16-bit WAV supported, got {8 * w.getsampwidth()}-bit")
+        if w.getnchannels() != 1:
+            raise MoreThanOneChannel(f"only mono WAV supported, got {w.getnchannels()} channels")
+        rate = w.getframerate()
+        raw = w.readframes(w.getnframes())
+    return np.frombuffer(raw, dtype="<i2").astype(np.int16), rate
+
+
+def write_wav(path, samples: np.ndarray, sample_rate: int) -> None:
+    """Write int16 mono samples as a WAV file."""
+    samples = np.ascontiguousarray(samples, dtype="<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(samples.tobytes())
+
+
+class WavWriter:
+    """Incremental mono 16-bit WAV writer: samples are appended batch by
+    batch, so decode memory stays bounded by the batch size.
+
+    The output is byte-identical to the `wave` module's (the standard
+    44-byte PCM header, its sizes patched on close)."""
+
+    def __init__(self, path, sample_rate: int):
+        self._f = open_overwrite(path)
+        self._rate = int(sample_rate)
+        self._f.write(self._header(0))  # sizes patched on close
+        self._aw = AsyncWriter(self._f)
+        self.samples_written = 0
+        self._closed = False
+
+    def _header(self, n_samples: int) -> bytes:
+        data_bytes = 2 * n_samples
+        return struct.pack(
+            "<4sI4s4sIHHIIHH4sI",
+            b"RIFF", 36 + data_bytes, b"WAVE",
+            b"fmt ", 16, 1, 1, self._rate, self._rate * 2, 2, 16,
+            b"data", data_bytes,
+        )
+
+    def write(self, samples: np.ndarray) -> None:
+        # The array itself is queued (buffer protocol), not a bytes copy:
+        # callers hand over arrays they do not modify afterwards.
+        samples = np.ascontiguousarray(samples, dtype="<i2")
+        self._aw.write(samples)
+        self.samples_written += len(samples)
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self._aw.close()  # drain; raises any background write error
+            self._f.seek(0)
+            self._f.write(self._header(self.samples_written))
+            # open_overwrite does not truncate: cut any stale tail of a
+            # longer earlier file now that the final size is known.
+            self._f.truncate(44 + 2 * self.samples_written)
+        finally:
+            self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
