@@ -55,7 +55,22 @@ Phases (any failure raises and the exit code is non-zero):
    sampled every millisecond) must stay under half the WAV's size; its
    head equal to the port's CPU encode, X3aReader's random access, and
    damage (a payload byte, a frame-header byte) giving the reference's
-   errors and counts; K1-K3 must have been launched by it.
+   errors and counts; K1-K3 must have been launched by it;
+8. multi-file batching and multichannel .x3m (x3_tpu_torch.multifile,
+   multichannel), in a temporary directory (about 2.4 GB of disk): 256
+   mono 96 kHz WAVs of the three classes, of lengths uniform in 1-480,000
+   samples, and three of 0, 1 and 10,000 samples, through
+   wav_to_x3a_batch (each archive equal to files.wav_to_x3a's) and
+   x3a_to_wav_batch (each WAV equal to its input), encode_streams and
+   decode_streams on the same arrays, the MB/s of three warm batch calls
+   each way and of one pass of single-file calls; then a 4-channel
+   20-minute hydrophone capture (4 x 11,520 frames and 3,333 samples,
+   921.6 MB) through wav_to_x3m (each channel's archive equal to the
+   port's encode of that channel) and x3m_to_wav (equal to the input),
+   verify_x3m and x3m_info, x3m_to_wav in a fresh process with its peak
+   RSS growth under half the WAV, a damaged payload byte in channel 2, and
+   the CLI's wav -> x3m -> wav on a 2-frame capture; K1-K3 must have been
+   launched by it.
 
 The line before the last is a JSON object describing each kernel (with
 its least time on the card from the bytes it must move, at 3.35 TB/s);
@@ -91,6 +106,13 @@ CHUNK_FRAMES = 6144  # the hour file is made and written this many frames at a t
 CMP_SAMPLES = 4 << 20  # WAVs are compared this many samples at a time
 DECODE_SWEEP = (768, 2048, 6144)  # x3a_to_wav batch sizes timed in phase 7
 DAMAGED_FRAMES = (1000, 2000)  # phase 7: a payload byte, then a header byte, of these frames
+MF_FILES = 256  # phase 8: WAVs batch-converted at once (BASELINE.json config 4)
+MF_MAX_SAMPLES = 480_000  # their lengths are uniform in 1..this (5 s at 96 kHz)
+MF_FIXED = (0, 1, 10_000)  # lengths of three more WAVs: empty, one sample, one frame
+X3M_CHANNELS = 4  # phase 8: the multichannel capture (BASELINE.json config 5)
+X3M_FRAMES = 11_520  # 20 minutes of 96 kHz in 10,000-sample frames
+X3M_TAIL = 3_333  # samples of each channel's partial last frame
+X3M_DAMAGED_CHANNEL = 2  # phase 8: the channel with a damaged payload byte
 GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden.npz"
 ROUTES = {  # phase 6: route -> (pack_mode, environment); "K2" is the reference
     "K2": ("block", {"X3_FUSED_ENCODE": "1"}),
@@ -802,13 +824,15 @@ def rss_child(argv) -> int:
     """--rss-child DIRECTION SRC DST BATCH RUNS WARM_SRC WARM_DST, in a
     fresh process: one small conversion (WARM_SRC -> WARM_DST) loads the
     kernels and sets up the allocators, then RUNS timed conversions of SRC
-    to DST; prints the wall times, the RSS and the peak RSS before them,
-    the peak RSS after them and the largest RSS sampled during them, as
-    JSON."""
-    from x3_tpu_torch import files
+    to DST (DIRECTION "encode": wav_to_x3a, "decode": x3a_to_wav, "x3m":
+    x3m_to_wav); prints the wall times, the RSS and the peak RSS before
+    them, the peak RSS after them and the largest RSS sampled during them,
+    as JSON."""
+    from x3_tpu_torch import files, multichannel
 
     direction, src, dst, batch, runs, warm_src, warm_dst = argv
-    fn = files.wav_to_x3a if direction == "encode" else files.x3a_to_wav
+    fn, want = {"encode": (files.wav_to_x3a, None), "decode": (files.x3a_to_wav, 0),
+                "x3m": (multichannel.x3m_to_wav, X3M_CHANNELS)}[direction]
     kw = dict(batch_frames=None if batch == "default" else int(batch), device=DEV)
     fn(warm_src, warm_dst, **kw)
     rss0, peak0 = rss_now(), rss_peak()
@@ -816,7 +840,7 @@ def rss_child(argv) -> int:
     with RssSampler() as sampler:
         for _ in range(int(runs)):
             t, out = timed_call(lambda: fn(src, dst, **kw))
-            require(direction == "encode" or out == 0, f"x3a_to_wav {src}: {out} frame errors")
+            require(want is None or out == want, f"{direction} {src}: returned {out}, want {want}")
             times.append(t)
     print(json.dumps({"times": times, "rss0": rss0, "peak0": peak0, "peak": rss_peak(),
                       "sampled": sampler.peak}))
@@ -907,11 +931,12 @@ def check_archive(path, n_frames: int, n_samples: int, what: str) -> list:
     return index
 
 
-def phase_files_class(name: str, d: dict, td: Path, smi: str, warm: dict) -> dict:
+def phase_files_class(name: str, d: dict, td: Path, smi: str, warm: dict) -> tuple[dict, str]:
     """Phase 7 for one class's 6,144-frame corpus: the archive equals phase
     4's, the roundtrip is exact, verify and info agree with the walk, and
     the MB/s of three warm calls each way (the check call is the warm
-    one).  For the first class also the decode batch-size sweep."""
+    one).  For the first class also the decode batch-size sweep.  Returns
+    the sweep and the MB/s, as text."""
     from x3_tpu_torch import files
 
     samples = d["samples"]
@@ -926,10 +951,11 @@ def phase_files_class(name: str, d: dict, td: Path, smi: str, warm: dict) -> dic
     enc = [timed_call(lambda: files.wav_to_x3a(src, x3a, device=DEV))[0] for _ in range(3)]
     dec = [timed_call(lambda: files.x3a_to_wav(x3a, back, device=DEV))[0] for _ in range(3)]
     require(x3a.read_bytes() == d["archive"] and same_wav(back, src), f"{name}: timed calls differ")
+    rates = (f"wav_to_x3a {mb / max(enc):.1f}-{mb / min(enc):.1f} MB/s, "
+             f"x3a_to_wav {mb / max(dec):.1f}-{mb / min(dec):.1f} MB/s")
     log(f"# phase 7 {name}: {len(d['counts'])} frames ({mb:.2f} MB int16) exact through wav_to_x3a "
-        f"(= phase 4's archive) and x3a_to_wav; verify_x3a ok; x3a_info = walk; wav_to_x3a "
-        f"{mb / max(enc):.1f}-{mb / min(enc):.1f} MB/s, x3a_to_wav {mb / max(dec):.1f}-{mb / min(dec):.1f} "
-        f"MB/s (min-max of 3 warm calls); {smi}")
+        f"(= phase 4's archive) and x3a_to_wav; verify_x3a ok; x3a_info = walk; {rates} "
+        f"(min-max of 3 warm calls); {smi}")
     sweep = {}
     if name == CLASSES[0]:
         for bf in DECODE_SWEEP:
@@ -941,7 +967,7 @@ def phase_files_class(name: str, d: dict, td: Path, smi: str, warm: dict) -> dic
                 + f", peak RSS growth {r['growth']:.1f} MB ({r['how']}; a fresh process, 3 calls); {smi}")
     for p in (src, x3a, back):
         p.unlink()
-    return sweep
+    return sweep, rates
 
 
 def hour_rss_bound(params) -> float:
@@ -1059,8 +1085,9 @@ def phase_files_hour(params, td: Path, smi: str, warm: dict) -> tuple[float, flo
     return g_enc, g_dec
 
 
-def phase_files(params, slices, kernels: dict, smi: str) -> None:
-    """Phase 7: the file layer on the card."""
+def phase_files(params, slices, kernels: dict, smi: str) -> dict:
+    """Phase 7: the file layer on the card.  Returns each class's
+    single-file MB/s, as text."""
     from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
 
     for mod in kernels.values():
@@ -1075,9 +1102,10 @@ def phase_files(params, slices, kernels: dict, smi: str) -> None:
         write_class_wav(warm_wav, slices[CLASSES[0]]["samples"][: 2 * params.samples_per_frame])
         files.wav_to_x3a(warm_wav, warm_x3a, device=DEV)
         warm = {"encode": (warm_wav, td / "warm.out.x3a"), "decode": (warm_x3a, td / "warm.out.wav")}
-        sweep = {}
+        sweep, rates = {}, {}
         for name in CLASSES:
-            sweep.update(phase_files_class(name, slices[name], td, smi, warm))
+            class_sweep, rates[name] = phase_files_class(name, slices[name], td, smi, warm)
+            sweep.update(class_sweep)
         phase_files_hour(params, td, smi, warm)
     launches = {k: mod.launch_count for k, mod in kernels.items()}
     for k, n in launches.items():
@@ -1087,6 +1115,218 @@ def phase_files(params, slices, kernels: dict, smi: str) -> None:
     best = min(fits, key=fits.get) if fits else None
     log(f"# phase 7 launches: {launches}; decode sweep: fastest within {bound:.1f} MB of peak RSS growth "
         f"batch_frames={best} (the default is {DECODE_BATCH_FRAMES}); {time.perf_counter() - t0:.1f} s")
+    return rates
+
+
+def phase_batch_files(params, td: Path, smi: str, rates7: dict) -> None:
+    """Phase 8's batch of WAVs (BASELINE.json config 4): MF_FILES files of
+    the three classes in turn, each of a length uniform in
+    1..MF_MAX_SAMPLES and made from its own seed, and the MF_FIXED
+    lengths."""
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import files, multifile
+
+    S = params.samples_per_frame
+    header = xt.build_archive_header(SAMPLE_RATE, params)
+    rng = np.random.default_rng(20261020)
+    lengths = [int(n) for n in rng.integers(1, MF_MAX_SAMPLES + 1, MF_FILES)] + list(MF_FIXED)
+    arrays = [make_class_corpus(CLASSES[k % 3], max(1, -(-n // S)), S, seed=1000 + k)[:n]
+              for k, n in enumerate(lengths)]
+    srcs = [td / f"mf{k}.wav" for k in range(len(arrays))]
+    x3as = [td / f"mf{k}.x3a" for k in range(len(arrays))]
+    backs = [td / f"mf{k}.back.wav" for k in range(len(arrays))]
+    for src, a in zip(srcs, arrays):
+        write_class_wav(src, a)
+    mb = sum(a.nbytes for a in arrays) / 1e6
+    n_frames = sum(-(-n // S) for n in lengths)
+
+    # The batch against one wav_to_x3a / x3a_to_wav a file (timed too).
+    t_enc, res = timed_call(lambda: multifile.wav_to_x3a_batch(srcs, x3as, params, device=DEV))
+    archives = [x.read_bytes() for x in x3as]
+    one, t_one_enc, t_one_dec = td / "mf.one.x3a", 0.0, 0.0
+    for k, (src, data, r) in enumerate(zip(srcs, archives, res)):
+        t, single = timed_call(lambda: files.wav_to_x3a(src, one, params, device=DEV))
+        t_one_enc += t
+        require(data == one.read_bytes(), f"file {k}: wav_to_x3a_batch differs from wav_to_x3a")
+        require(r.nbytes == len(data) - len(header) and np.array_equal(r.stats, single.stats),
+                f"file {k}: wav_to_x3a_batch's result differs from wav_to_x3a's")
+    t_dec, counts = timed_call(lambda: multifile.x3a_to_wav_batch(x3as, backs, device=DEV))
+    require(counts == lengths, "x3a_to_wav_batch's sample counts differ from the inputs'")
+    for k, (src, back) in enumerate(zip(srcs, backs)):
+        require(same_wav(back, src), f"file {k}: x3a_to_wav_batch differs from the input")
+        t, errors = timed_call(lambda: files.x3a_to_wav(x3as[k], td / "mf.one.wav", device=DEV))
+        t_one_dec += t
+        require(errors == 0, f"file {k}: x3a_to_wav reported frame errors")
+
+    # The in-memory entry points on the same arrays.
+    t_streams_enc, enc = timed_call(lambda: multifile.encode_streams(arrays, params, device=DEV))
+    for k, (e, r, data) in enumerate(zip(enc, res, archives)):
+        require(header + e.data == data and np.array_equal(e.stats, r.stats),
+                f"stream {k}: encode_streams differs from wav_to_x3a_batch")
+    t_streams_dec, dec = timed_call(lambda: multifile.decode_streams(archives, device=DEV))
+    for k, ((d, rate), a) in enumerate(zip(dec, arrays)):
+        require(rate == SAMPLE_RATE and np.array_equal(d, a), f"stream {k}: decode_streams differs")
+
+    enc_t = [timed_call(lambda: multifile.wav_to_x3a_batch(srcs, x3as, params, device=DEV))[0] for _ in range(3)]
+    dec_t = [timed_call(lambda: multifile.x3a_to_wav_batch(x3as, backs, device=DEV))[0] for _ in range(3)]
+    require([x.read_bytes() for x in x3as] == archives and all(map(same_wav, backs, srcs)),
+            "the timed batch calls differ")
+    for p in (*srcs, *x3as, *backs, one, td / "mf.one.wav"):
+        p.unlink()
+    log(f"# phase 8 files: {len(lengths)} WAVs ({n_frames} frames, {mb:.2f} MB int16, "
+        f"{min(lengths)}-{max(lengths)} samples) exact: wav_to_x3a_batch = wav_to_x3a on every file, "
+        f"x3a_to_wav_batch = the inputs, encode_streams = the archives, decode_streams = the inputs; "
+        f"wav_to_x3a_batch {mb / max(enc_t):.1f}-{mb / min(enc_t):.1f} MB/s, x3a_to_wav_batch "
+        f"{mb / max(dec_t):.1f}-{mb / min(dec_t):.1f} MB/s (min-max of 3 warm calls; first calls "
+        f"{mb / t_enc:.1f} / {mb / t_dec:.1f}); one call a file: wav_to_x3a {mb / t_one_enc:.1f} MB/s, "
+        f"x3a_to_wav {mb / t_one_dec:.1f} MB/s; encode_streams {mb / t_streams_enc:.1f} MB/s, "
+        f"decode_streams {mb / t_streams_dec:.1f} MB/s (one call each); {smi}")
+    log("# phase 8 files beside phase 7's single 6,144-frame files: "
+        + "; ".join(f"{name} {r}" for name, r in rates7.items()))
+
+
+def write_capture_wav(path, params, n_frames: int, tail: int, seed: int) -> int:
+    """An X3M_CHANNELS-channel 96 kHz hydrophone capture of n_frames frames
+    and `tail` samples a channel, interleaved, written CHUNK_FRAMES frames
+    at a time (each channel and chunk from its own seed), never whole in
+    memory.  Returns the samples a channel."""
+    S = params.samples_per_frame
+    n = n_frames * S + tail
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(X3M_CHANNELS)
+        w.setsampwidth(2)
+        w.setframerate(SAMPLE_RATE)
+        for i, start in enumerate(range(0, n, CHUNK_FRAMES * S)):
+            m = min(CHUNK_FRAMES * S, n - start)
+            chans = np.stack([make_class_corpus("hydrophone", -(-m // S), S, seed=seed + 100 * c + i)[:m]
+                              for c in range(X3M_CHANNELS)], axis=1)
+            w.writeframes(chans.tobytes())
+            del chans
+    return n
+
+
+def same_file(a, b, chunk: int = 1 << 24) -> bool:
+    """Two files with the same bytes, compared a chunk at a time."""
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def phase_x3m(params, td: Path, smi: str) -> float:
+    """Phase 8's multichannel capture (BASELINE.json config 5): 4 channels
+    of 20 minutes at 96 kHz through wav_to_x3m and x3m_to_wav, verify and
+    info, bounded peak RSS, damage, and the CLI.  Returns x3m_to_wav's peak
+    RSS growth in MB."""
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import archive, multichannel
+    from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
+    from x3_tpu_torch.errors import FrameHeaderInvalidPayloadCRC
+
+    S = params.samples_per_frame
+    header = xt.build_archive_header(SAMPLE_RATE, params)
+
+    # The CLI on a 2-frame capture, on the card; its archives warm the
+    # measuring process below.
+    small, small_x3m, small_back = td / "quad2.wav", td / "quad2.x3m", td / "quad2.back.wav"
+    write_capture_wav(small, params, 2, 0, seed=300)
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    for args in (("-i", small, "-o", small_x3m), ("-i", small_x3m, "-o", small_back)):
+        out = subprocess.run([sys.executable, "-m", "x3_tpu_torch", *map(str, args), "-q", "--device", DEV], env=env,
+                             cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300)
+        require(out.returncode == 0, f"python -m x3_tpu_torch {args}: exit {out.returncode}\n{out.stderr[-3000:]}")
+    require(same_file(small_back, small), "the CLI's wav -> x3m -> wav differs from the input")
+
+    src, back = td / "quad.wav", td / "quad.back.wav"
+    n = write_capture_wav(src, params, X3M_FRAMES, X3M_TAIL, seed=400)
+    mb = X3M_CHANNELS * n * 2 / 1e6
+    t_enc, mpath = timed_call(lambda: multichannel.wav_to_x3m(src, td / "quad", params, device=DEV))
+    chans, rate = multichannel.read_wav_multichannel(src)
+    require(rate == SAMPLE_RATE and chans.shape == (X3M_CHANNELS, n), f"capture shape {chans.shape}")
+    paths = [td / f"quad.ch{c}.x3a" for c in range(X3M_CHANNELS)]
+    for c, p in enumerate(paths):
+        require(p.read_bytes() == header + xt.encode(chans[c], params, device=DEV).data,
+                f"channel {c}: wav_to_x3m's archive differs from encode of the channel")
+    del chans
+    t_dec, got = timed_call(lambda: multichannel.x3m_to_wav(mpath, back, device=DEV))
+    require(got == X3M_CHANNELS and same_file(back, src), "x3m_to_wav differs from the input WAV")
+    back.unlink()
+
+    rep = multichannel.verify_x3m(mpath, device=DEV)
+    require(rep["ok"] and rep["channels"] == X3M_CHANNELS and rep["frame_errors"] == 0
+            and rep["skipped_bytes"] == 0
+            and all(r["n_frames"] == X3M_FRAMES + 1 and r["n_samples_ok"] == n for r in rep["per_channel"]),
+            f"verify_x3m reports {rep}")
+    info = multichannel.x3m_info(mpath, device=DEV)
+    indexes = []
+    for c, p in enumerate(paths):
+        with open(p, "rb") as f:
+            _, hs = archive.read_archive_header_file(f)
+            indexes.append(list(archive.walk_frames_file(f, hs)))
+        walked = (len(indexes[c]), sum(h.samples for _, h in indexes[c]),
+                  sum(h.payload_len for _, h in indexes[c]))
+        pc = info["per_channel"][c]
+        require((pc["n_frames"], pc["n_samples"], pc["payload_bytes"]) == walked,
+                f"channel {c}: x3m_info {pc} disagrees with the walk {walked}")
+    require(info["channels"] == X3M_CHANNELS and info["samples_per_channel"] == n
+            and info["pcm_bytes"] == 2 * X3M_CHANNELS * n
+            and info["archive_bytes"] == sum(p.stat().st_size for p in paths),
+            f"x3m_info {({k: v for k, v in info.items() if k != 'per_channel'})}")
+
+    bound = mb / 2
+    r = rss_run("x3m", mpath, back, (small_x3m, td / "quad2.warm.wav"))
+    require(same_file(back, src), "x3m_to_wav in the measuring process differs from the input WAV")
+    back.unlink()
+    require(r["growth"] < bound, f"x3m_to_wav peak RSS growth {r['growth']:.1f} MB, bound {bound:.1f} MB")
+    log(f"# phase 8 x3m: {X3M_CHANNELS} channels x {n} samples ({X3M_FRAMES} frames and {X3M_TAIL} samples, "
+        f"{mb:.2f} MB interleaved) exact: each channel's archive = encode of the channel, x3m_to_wav = the "
+        f"input; verify_x3m ok; x3m_info = walk; wav_to_x3m {mb / t_enc:.1f} MB/s, x3m_to_wav "
+        f"{mb / t_dec:.1f} MB/s (one call each), {mb / r['times'][0]:.1f} MB/s in a fresh process with "
+        f"peak RSS growth {r['growth']:.1f} MB ({r['how']}; bound {bound:.1f} MB); the CLI's wav -> x3m "
+        f"-> wav exact on a 2-frame capture; {smi}")
+
+    # Damage: one payload byte of the first frame of a decode batch (so
+    # x3m_to_wav meets it at once) in one channel.
+    c, fi = X3M_DAMAGED_CHANNEL, 6 * DECODE_BATCH_FRAMES
+    pos = indexes[c][fi][0] + 10
+    with open(paths[c], "r+b") as f:
+        f.seek(pos)
+        byte = f.read(1)[0]
+        f.seek(pos)
+        f.write(bytes([byte ^ 0x10]))
+    try:
+        multichannel.x3m_to_wav(mpath, back, device=DEV)
+        raised = None
+    except FrameHeaderInvalidPayloadCRC as e:
+        raised = e
+    require(raised is not None, "x3m_to_wav on a damaged channel did not raise FrameHeaderInvalidPayloadCRC")
+    rep = multichannel.verify_x3m(mpath, device=DEV)
+    pcs = rep["per_channel"]
+    require(not rep["ok"] and rep["frame_errors"] == 1 and not pcs[c]["ok"]
+            and all(pc["ok"] for k, pc in enumerate(pcs) if k != c),
+            f"verify_x3m on a damaged channel reports {rep}")
+    log(f"# phase 8 x3m damage: a payload byte of channel {c} frame {fi}: x3m_to_wav raises "
+        f"{type(raised).__name__} ({raised}); verify_x3m FAILED with {rep['frame_errors']} frame error, "
+        f"in channel {c} alone (reason: {rep.get('reason')})")
+    return r["growth"]
+
+
+def phase_batch(params, kernels: dict, smi: str, rates7: dict) -> None:
+    """Phase 8: multi-file batching and multichannel .x3m on the card."""
+    for mod in kernels.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="x3_smoke_") as tmp:
+        td = Path(tmp)
+        phase_batch_files(params, td, smi, rates7)
+        phase_x3m(params, td, smi)
+    launches = {k: mod.launch_count for k, mod in kernels.items()}
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched by phase 8")
+    log(f"# phase 8 launches: {launches}; {time.perf_counter() - t0:.1f} s")
 
 
 def profile_route_kernels(params, reps: int = 20) -> None:
@@ -1201,7 +1441,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no GPU to run on", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--rss-child"]:  # phase 7's measuring process
+    if sys.argv[1:2] == ["--rss-child"]:  # phases 7 and 8's measuring process
         return rss_child(sys.argv[2:])
     # Phase 1: device.
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1258,7 +1498,11 @@ def main() -> int:
     first.update(route_times)
 
     # Phase 7: the file layer; its own launch counts.
-    phase_files(params, slices, kernels, "; ".join(smi))
+    rates7 = phase_files(params, slices, kernels, "; ".join(smi))
+
+    # Phase 8: multi-file batching and multichannel .x3m; its own launch
+    # counts.
+    phase_batch(params, kernels, "; ".join(smi), rates7)
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": launches[k], "max_abs_err": errs.max.get(k, 0),

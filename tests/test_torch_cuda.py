@@ -366,3 +366,59 @@ def test_file_roundtrip_on_cuda_matches_cpu(cuda, tmp_path, params, batch):
         np.testing.assert_array_equal(r.read_samples(S - 3, 2 * S), wav[S - 3 : 3 * S - 3])
         np.testing.assert_array_equal(r.decode_frame_at(7), wav[7 * S :])
     assert min(crc_cuda.launch_count, decode_cuda.launch_count, encode_cuda.launch_count) > 0
+
+
+def _signal(rng, n: int) -> np.ndarray:
+    return _mixed(rng, n) if n >= 6 else rng.integers(-99, 99, n).astype(np.int16)
+
+
+def test_batch_files_on_cuda_match_cpu(cuda, tmp_path):
+    """wav_to_x3a_batch and x3a_to_wav_batch of five WAVs (one empty) on
+    the card give the archives and WAVs of the same calls on the CPU, and
+    the WAVs equal the inputs, through K1-K3."""
+    from x3_tpu_torch import multifile
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda, encode_cuda
+    from x3_tpu_torch.utils.wav import write_wav
+
+    params = GEOMETRIES[0]
+    S = params.samples_per_frame
+    rng = np.random.default_rng(23)
+    lengths = [7 * S + 5, 0, 1, 3 * S, 12 * S + 17]
+    srcs = [tmp_path / f"in{k}.wav" for k in range(len(lengths))]
+    for src, n in zip(srcs, lengths):
+        write_wav(src, _signal(rng, n), 96000)
+    out = {}
+    for dev in ("cpu", cuda):
+        for mod in (crc_cuda, decode_cuda, encode_cuda):
+            mod.launch_count = 0
+        tag = str(dev)
+        x3as = [tmp_path / f"{tag}{k}.x3a" for k in range(len(srcs))]
+        backs = [tmp_path / f"{tag}{k}.wav" for k in range(len(srcs))]
+        res = multifile.wav_to_x3a_batch(srcs, x3as, params, 4, device=dev)
+        assert multifile.x3a_to_wav_batch(x3as, backs, 4, device=dev) == lengths
+        out[tag] = ([x.read_bytes() for x in x3as], [b.read_bytes() for b in backs],
+                    [(r.nbytes, r.stats.tolist()) for r in res])
+    assert out["cpu"] == out[str(cuda)]
+    assert out["cpu"][1] == [s.read_bytes() for s in srcs]
+    assert min(crc_cuda.launch_count, decode_cuda.launch_count, encode_cuda.launch_count) > 0
+
+
+def test_x3m_on_cuda_matches_cpu(cuda, tmp_path):
+    """wav_to_x3m and x3m_to_wav of a 3-channel capture on the card give
+    the files of the same calls on the CPU and the input back."""
+    from x3_tpu_torch import multichannel
+
+    params = GEOMETRIES[0]
+    rng = np.random.default_rng(24)
+    n = 9 * params.samples_per_frame + 11
+    src = tmp_path / "tri.wav"
+    multichannel.write_wav_multichannel(src, np.stack([_signal(rng, n) for _ in range(3)]), 48000)
+    got = {}
+    for dev in ("cpu", cuda):
+        d = tmp_path / str(dev).replace(":", "")
+        d.mkdir()
+        mpath = multichannel.wav_to_x3m(src, d / "tri", params, device=dev)
+        assert multichannel.x3m_to_wav(mpath, d / "back.wav", batch_frames=4, device=dev) == 3
+        got[str(dev)] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
+    assert got["cpu"] == got[str(cuda)]
+    assert got["cpu"]["back.wav"] == src.read_bytes()

@@ -578,17 +578,6 @@ def test_cli_range_extracts_the_samples(arch, tmp_path, rng_arg):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("args", [("-o", "out.x3m"), ("--info",), ("--verify",)],
-                         ids=["to-x3m", "info-x3m", "verify-x3m"])
-def test_cli_x3m_is_not_ported(tmp_path, args):
-    from x3_tpu_torch.cli import NO_X3M
-
-    src = write_wav(tmp_path / "in.wav", np.zeros(10, np.int16))
-    inp = src if args[0] == "-o" else tmp_path / "in.x3m"
-    r = run_cli("-i", inp, *[tmp_path / a if a.endswith(".x3m") else a for a in args], "--device", "cpu")
-    assert r.returncode == 1 and NO_X3M in r.stderr
-
-
 def test_cli_refuses_the_jax_engine(tmp_path):
     src = write_wav(tmp_path / "in.wav", np.zeros(10, np.int16))
     r = run_cli("-i", src, "-o", tmp_path / "out.x3a", "--engine", "jax", "--device", "cpu")

@@ -195,7 +195,8 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
             "x3_tpu_torch.archive", "x3_tpu_torch.tables", "x3_tpu_torch.engine",
             "x3_tpu_torch.streaming", "x3_tpu_torch.files", "x3_tpu_torch.channel",
             "x3_tpu_torch.cli", "x3_tpu_torch.wav_to_str", "x3_tpu_torch.utils.io",
-            "x3_tpu_torch.utils.wav", "x3_tpu_torch.utils.xmlmeta"} <= set(mods)
+            "x3_tpu_torch.utils.wav", "x3_tpu_torch.utils.xmlmeta", "x3_tpu_torch.multifile",
+            "x3_tpu_torch.multichannel", "x3_tpu_torch.parallel.multihost"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "import x3_tpu_torch\n"

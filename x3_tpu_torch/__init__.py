@@ -12,7 +12,10 @@ for NVIDIA Hopper (csrc/*.cu, built with nvcc on first use):
   by any of the JAX package's pack routes ("block", "block_pallas",
   "fused_pallas", "segment");
 * `wav_to_x3a`, `x3a_to_wav`, `x3a_info`, `verify_x3a` and `X3aReader` —
-  the file layer (files.py), and `python -m x3_tpu_torch`, its CLI.
+  the file layer (files.py), and `python -m x3_tpu_torch`, its CLI;
+* `wav_to_x3a_batch` / `x3a_to_wav_batch` — many files sharing device
+  batches (multifile.py), and the multi-channel .x3m manifests
+  (multichannel.py).
 
 device="cuda" runs the kernels (and raises when there is no GPU);
 device="cpu" runs their plain PyTorch versions.  The package shares no
@@ -36,6 +39,8 @@ __all__ = [
     "x3a_info",
     "verify_x3a",
     "X3aReader",
+    "wav_to_x3a_batch",
+    "x3a_to_wav_batch",
 ]
 
 _FILES = ("wav_to_x3a", "x3a_to_wav", "x3a_info", "verify_x3a", "X3aReader")
@@ -58,4 +63,8 @@ def __getattr__(name):
         from . import files
 
         return getattr(files, name)
+    if name in ("wav_to_x3a_batch", "x3a_to_wav_batch"):
+        from . import multifile
+
+        return getattr(multifile, name)
     raise AttributeError(name)

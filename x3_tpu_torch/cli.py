@@ -2,12 +2,12 @@
 
     python -m x3_tpu_torch --input FILE --output FILE [--device cuda|cpu]
 
-converts between the .wav and .x3a types by their extensions; input and
-output must differ in type.  Also: --engine, --resync, --quiet, --range
-START[:COUNT] (random access), --info (header-index metadata) and --verify
-(a full check, no output).  Every conversion runs on --device: "cuda"
-(the default) runs the CUDA kernels, "cpu" their plain PyTorch versions.
-Multichannel .x3m manifests are not ported yet."""
+converts between the .wav, .x3a and .x3m (multi-channel manifest) types by
+their extensions; input and output must differ in type.  Also: --engine,
+--resync, --quiet, --range START[:COUNT] (random access), --info
+(header-index metadata) and --verify (a full check, no output), of an
+.x3a or an .x3m.  Every conversion runs on --device: "cuda" (the default)
+runs the CUDA kernels, "cpu" their plain PyTorch versions."""
 
 from __future__ import annotations
 
@@ -15,8 +15,6 @@ import argparse
 import sys
 
 from .params import Parameters
-
-NO_X3M = "multichannel .x3m files are not ported to x3_tpu_torch yet"
 
 
 def get_filetype(filename: str) -> str:
@@ -68,25 +66,40 @@ def main(argv=None) -> int:
     if args.info or args.verify:
         from .errors import X3Error
 
-        if in_type == "x3m":
-            raise SystemExit(NO_X3M)
-        if in_type != "x3a":
+        if in_type not in ("x3a", "x3m"):
             raise SystemExit("--info/--verify take an .x3a or .x3m input.")
         try:
             if args.info:
-                from .files import x3a_info
+                if in_type == "x3a":
+                    from .files import x3a_info
 
-                for k, v in x3a_info(args.input, device=args.device).items():
+                    info = x3a_info(args.input, device=args.device)
+                else:
+                    from .multichannel import x3m_info
+
+                    info = x3m_info(args.input, device=args.device)
+                    info.pop("per_channel")
+                for k, v in info.items():
                     print(f"{k}: {v}")
             if args.verify:
-                from .files import verify_x3a
+                if in_type == "x3a":
+                    from .files import verify_x3a
 
-                report = verify_x3a(args.input, engine=args.engine, verbose=not args.quiet, device=args.device)
-                n_frames = report["n_frames"]
+                    report = verify_x3a(args.input, engine=args.engine, verbose=not args.quiet,
+                                        device=args.device)
+                    n_frames = report["n_frames"]
+                    detail = (
+                        f"{n_frames - report['frame_errors']}/{n_frames} frames ok, "
+                        f"{report['n_samples_ok']} samples"
+                    )
+                else:
+                    from .multichannel import verify_x3m
+
+                    report = verify_x3m(args.input, engine=args.engine, verbose=not args.quiet,
+                                        device=args.device)
+                    detail = f"{report['channels']} channels"
                 print(
-                    f"{'ok' if report['ok'] else 'FAILED'}: "
-                    f"{n_frames - report['frame_errors']}/{n_frames} frames ok, "
-                    f"{report['n_samples_ok']} samples, "
+                    f"{'ok' if report['ok'] else 'FAILED'}: {detail}, "
                     f"{report['frame_errors']} frame errors, "
                     f"{report['skipped_bytes']} bytes skipped (engine={report['engine']})"
                 )
@@ -95,7 +108,8 @@ def main(argv=None) -> int:
                         print(f"reason: {report['reason']}")
                     return 1
         except (X3Error, OSError, ValueError) as e:
-            # An input damaged past inspection exits with a message, not a
+            # An input damaged past inspection (an unreadable archive or
+            # manifest, a missing channel file) exits with a message, not a
             # traceback: these options exist to inspect damaged files.
             raise SystemExit(f"error: {e}")
         return 0
@@ -105,8 +119,6 @@ def main(argv=None) -> int:
     out_type = get_filetype(args.output)
     if in_type == out_type:
         raise SystemExit("Input must be different file type than output.")
-    if "x3m" in (in_type, out_type):
-        raise SystemExit(NO_X3M)
 
     if args.sample_range is not None:
         if not (in_type == "x3a" and out_type == "wav"):
@@ -126,15 +138,27 @@ def main(argv=None) -> int:
             write_wav(args.output, reader.read_samples(start, count), reader.spec.sample_rate)
         return 0
 
-    from .files import wav_to_x3a, x3a_to_wav
-
     params = Parameters(block_len=args.block_len) if args.block_len else Parameters()
-    if in_type == "wav":
+    if in_type == "wav" and out_type == "x3a":
+        from .files import wav_to_x3a
+
         wav_to_x3a(args.input, args.output, params=params, engine=args.engine, verbose=not args.quiet,
                    device=args.device)
-    else:
+    elif in_type == "x3a" and out_type == "wav":
+        from .files import x3a_to_wav
+
         x3a_to_wav(args.input, args.output, engine=args.engine, verbose=not args.quiet, resync=args.resync,
                    device=args.device)
+    elif in_type == "wav" and out_type == "x3m":
+        from .multichannel import wav_to_x3m
+
+        wav_to_x3m(args.input, args.output, params=params, device=args.device)
+    elif in_type == "x3m" and out_type == "wav":
+        from .multichannel import x3m_to_wav
+
+        x3m_to_wav(args.input, args.output, engine=args.engine, device=args.device)
+    else:
+        raise SystemExit(f"Unsupported conversion {in_type} -> {out_type}.")
     return 0
 
 

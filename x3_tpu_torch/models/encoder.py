@@ -100,6 +100,48 @@ def _start_rung(rungs: list[int], hint: int | None) -> int:
     return i
 
 
+def encode_batch(batch_t: torch.Tensor, n_valid_t: torch.Tensor, params: Parameters, rung: int,
+                 nw_rung: int):
+    """Encode one [F, S] batch on its tensors' device (K2 + K1 on "cuda")
+    at the payload-width and block-width rungs `rung` / `nw_rung` of
+    width_rungs / block_width_rungs, escalated sticky when it overflows.
+
+    Returns (payload uint8 [F, 4*wcols] of big-endian payload bytes, with
+    only the populated word columns copied to the host; nbytes [F]; crc
+    [F]; stats int [F, 6]; the rung and nw_rung the batch ended at)."""
+    rungs = width_rungs(params)
+    nw_rungs = block_width_rungs(params)
+    w, nw = rungs[rung], nw_rungs[nw_rung]
+    res = encode_frames(batch_t, n_valid_t, params, "block", w, nw)
+    nbytes = res["nbytes"].cpu().numpy()
+    blockfit = res["blockfit_bits"].cpu().numpy()
+    # Sticky escalation straight to the first fitting rung.  K2 and K6
+    # keep no NW-sized block buffers and blockfit_bits is exact at any
+    # rung, so on their routes an NW overflow only moves the rung
+    # (reported as block_width_used); the torch pack drops pieces past
+    # the NW rung and is dispatched again.
+    redo = block_route() == "pairs" and not fits_block_width(blockfit, nw, params)
+    while nw_rung < len(nw_rungs) - 1 and not fits_block_width(blockfit, nw, params):
+        nw_rung += 1
+        nw = nw_rungs[nw_rung]
+    if not fits_width(nbytes, w, params):
+        redo = True
+        while rung < len(rungs) - 1:
+            rung += 1
+            if fits_width(nbytes, rungs[rung], params):
+                break
+        w = rungs[rung]
+    if redo:
+        res = encode_frames(batch_t, n_valid_t, params, "block", w, nw)
+        nbytes = res["nbytes"].cpu().numpy()
+    # Copy only the populated word columns to the host.
+    maxw = max(1, (int(nbytes.max(initial=0)) + 3) // 4)
+    wcols = min(w, 1 << (maxw - 1).bit_length())
+    words = res["payload_words"][:, :wcols].contiguous().cpu().numpy()
+    payload = words.view(np.uint32).byteswap().view(np.uint8)  # big-endian bytes
+    return payload, nbytes, res["crc"].cpu().numpy(), res["stats"].cpu().numpy(), rung, nw_rung
+
+
 def encode(
     samples,
     params: Parameters | None = None,
@@ -149,39 +191,10 @@ def encode(
             tail = samples[start + n_full * spf :]
             batch[n_full, : len(tail)] = tail
             n_valid[n_full] = len(tail)
-        batch_t = torch.from_numpy(batch).to(dev)
-        n_valid_t = torch.from_numpy(n_valid).to(dev)
-
-        w, nw = rungs[rung], nw_rungs[nw_rung]
-        res = encode_frames(batch_t, n_valid_t, params, "block", w, nw)
-        nbytes = res["nbytes"].cpu().numpy()
-        blockfit = res["blockfit_bits"].cpu().numpy()
-        # Sticky escalation straight to the first fitting rung.  K2 and K6
-        # keep no NW-sized block buffers and blockfit_bits is exact at any
-        # rung, so on their routes an NW overflow only moves the rung
-        # (reported as block_width_used); the torch pack drops pieces past
-        # the NW rung and is dispatched again.
-        redo = block_route() == "pairs" and not fits_block_width(blockfit, nw, params)
-        while nw_rung < len(nw_rungs) - 1 and not fits_block_width(blockfit, nw, params):
-            nw_rung += 1
-            nw = nw_rungs[nw_rung]
-        if not fits_width(nbytes, w, params):
-            redo = True
-            while rung < len(rungs) - 1:
-                rung += 1
-                if fits_width(nbytes, rungs[rung], params):
-                    break
-            w = rungs[rung]
-        if redo:
-            res = encode_frames(batch_t, n_valid_t, params, "block", w, nw)
-            nbytes = res["nbytes"].cpu().numpy()
-        # Copy only the populated word columns to the host.
-        maxw = max(1, (int(nbytes.max(initial=0)) + 3) // 4)
-        wcols = min(w, 1 << (maxw - 1).bit_length())
-        words = res["payload_words"][:, :wcols].contiguous().cpu().numpy()
-        payload = words.view(np.uint32).byteswap().view(np.uint8)  # big-endian bytes
-        crc = res["crc"].cpu().numpy()
-        stats += res["stats"].cpu().numpy().sum(axis=0, dtype=np.int64)
+        payload, nbytes, crc, bstats, rung, nw_rung = encode_batch(
+            torch.from_numpy(batch).to(dev), torch.from_numpy(n_valid).to(dev), params, rung, nw_rung
+        )
+        stats += bstats.sum(axis=0, dtype=np.int64)
         headers = build_frame_headers(n_valid, source_id, nbytes, crc)
         out_parts.append(_assemble(headers, payload, nbytes))
 

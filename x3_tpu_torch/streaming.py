@@ -5,7 +5,8 @@ one call of the port's `encode` on `device`, and appends the frame stream
 to the output, so memory stays bounded by the batch size whatever the
 input's length.  Only the final flush may emit a partial frame, which is
 the reference's framing.  The payload-width and block-width rungs a batch
-ends at start the next batch's ladders."""
+ends at start the next batch's ladders.  encode_channels encodes a
+multi-channel capture through multifile.encode_streams."""
 
 from __future__ import annotations
 
@@ -145,3 +146,13 @@ def wav_to_x3a_streaming(
                     break
                 enc.write(np.frombuffer(raw, dtype="<i2"))
             return enc.close().stats
+
+
+def encode_channels(samples_2d, params: Parameters | None = None, mesh=None, *, device="cuda"):
+    """Encode a [C, n] multi-channel capture into C independent frame
+    streams, all channels' frames sharing device batches.  Returns a list
+    of EncodeResult (one per channel)."""
+    from .multifile import encode_streams
+
+    samples_2d = np.atleast_2d(np.asarray(samples_2d, dtype=np.int16))
+    return encode_streams(list(samples_2d), params, mesh=mesh, device=device)
