@@ -70,7 +70,22 @@ Phases (any failure raises and the exit code is non-zero):
    verify_x3m and x3m_info, x3m_to_wav in a fresh process with its peak
    RSS growth under half the WAV, a damaged payload byte in channel 2, and
    the CLI's wav -> x3m -> wav on a 2-frame capture; K1-K3 must have been
-   launched by it.
+   launched by it;
+9. the mesh, the profiling hooks and a soak (x3_tpu_torch.parallel.mesh,
+   entry, utils.profiling, tools.fuzz_soak): a mesh of every visible card
+   and, on a one-card machine, meshes of two and four entries of cuda:0
+   (an entry is a shard); each class's 6,144 frames through
+   encode_frames_sharded and decode_frames_sharded at phase 4's rungs,
+   equal to the unsharded calls key for key, the decode equal to the
+   input; roundtrip_step and dryrun_multichip(4) exact; phase 8's 259
+   WAVs through wav_to_x3a_batch / x3a_to_wav_batch with each mesh
+   (archives equal to phase 8's, WAVs to the inputs; MB/s beside the
+   calls without a mesh, not claimed) and encode_streams /
+   decode_streams with each mesh equal to the calls without one;
+   aot_compile(768) and the time of the next encode and decode, and a
+   trace() of one encode and decode that must hold K1-K3 device rows; a
+   short fuzz soak of K3 against its plain version (SOAK_TRIALS trials
+   from SOAK_SEED); K1-K3 must have been launched by it.
 
 The line before the last is a JSON object describing each kernel (with
 its least time on the card from the bytes it must move, at 3.35 TB/s);
@@ -113,6 +128,8 @@ X3M_CHANNELS = 4  # phase 8: the multichannel capture (BASELINE.json config 5)
 X3M_FRAMES = 11_520  # 20 minutes of 96 kHz in 10,000-sample frames
 X3M_TAIL = 3_333  # samples of each channel's partial last frame
 X3M_DAMAGED_CHANNEL = 2  # phase 8: the channel with a damaged payload byte
+SOAK_TRIALS = 3  # phase 9: fuzz soak trials (each one plain decode call here)
+SOAK_SEED = 2  # the soak's kinds rotate from the seed: hydrophone, music, noise
 GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden.npz"
 ROUTES = {  # phase 6: route -> (pack_mode, environment); "K2" is the reference
     "K2": ("block", {"X3_FUSED_ENCODE": "1"}),
@@ -1118,11 +1135,12 @@ def phase_files(params, slices, kernels: dict, smi: str) -> dict:
     return rates
 
 
-def phase_batch_files(params, td: Path, smi: str, rates7: dict) -> None:
+def phase_batch_files(params, td: Path, smi: str, rates7: dict) -> dict:
     """Phase 8's batch of WAVs (BASELINE.json config 4): MF_FILES files of
     the three classes in turn, each of a length uniform in
     1..MF_MAX_SAMPLES and made from its own seed, and the MF_FIXED
-    lengths."""
+    lengths.  Returns the WAVs (left in `td`), their samples, lengths,
+    archives and statistics, and their MB of int16."""
     import x3_tpu_torch as xt
     from x3_tpu_torch import files, multifile
 
@@ -1171,7 +1189,7 @@ def phase_batch_files(params, td: Path, smi: str, rates7: dict) -> None:
     dec_t = [timed_call(lambda: multifile.x3a_to_wav_batch(x3as, backs, device=DEV))[0] for _ in range(3)]
     require([x.read_bytes() for x in x3as] == archives and all(map(same_wav, backs, srcs)),
             "the timed batch calls differ")
-    for p in (*srcs, *x3as, *backs, one, td / "mf.one.wav"):
+    for p in (*x3as, *backs, one, td / "mf.one.wav"):
         p.unlink()
     log(f"# phase 8 files: {len(lengths)} WAVs ({n_frames} frames, {mb:.2f} MB int16, "
         f"{min(lengths)}-{max(lengths)} samples) exact: wav_to_x3a_batch = wav_to_x3a on every file, "
@@ -1183,6 +1201,9 @@ def phase_batch_files(params, td: Path, smi: str, rates7: dict) -> None:
         f"decode_streams {mb / t_streams_dec:.1f} MB/s (one call each); {smi}")
     log("# phase 8 files beside phase 7's single 6,144-frame files: "
         + "; ".join(f"{name} {r}" for name, r in rates7.items()))
+    # Phase 9 sends the same WAVs through the batch APIs with a mesh.
+    return dict(srcs=srcs, arrays=arrays, lengths=lengths, archives=archives, stats=[r.stats for r in res],
+                mb=mb)
 
 
 def write_capture_wav(path, params, n_frames: int, tail: int, seed: int) -> int:
@@ -1314,19 +1335,205 @@ def phase_x3m(params, td: Path, smi: str) -> float:
     return r["growth"]
 
 
-def phase_batch(params, kernels: dict, smi: str, rates7: dict) -> None:
-    """Phase 8: multi-file batching and multichannel .x3m on the card."""
+def phase_batch(params, kernels: dict, smi: str, rates7: dict, td: Path) -> dict:
+    """Phase 8: multi-file batching and multichannel .x3m on the card, in
+    `td`.  Returns phase_batch_files' WAVs for phase 9."""
     for mod in kernels.values():
         mod.launch_count = 0
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="x3_smoke_") as tmp:
-        td = Path(tmp)
-        phase_batch_files(params, td, smi, rates7)
-        phase_x3m(params, td, smi)
+    batch = phase_batch_files(params, td, smi, rates7)
+    phase_x3m(params, td, smi)
     launches = {k: mod.launch_count for k, mod in kernels.items()}
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was not launched by phase 8")
     log(f"# phase 8 launches: {launches}; {time.perf_counter() - t0:.1f} s")
+    return batch
+
+
+def smoke_meshes():
+    """Phase 9's meshes: every visible card, and on a one-card machine also
+    two and four entries of cuda:0 (an entry is a shard)."""
+    import torch
+
+    from x3_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = [make_mesh()]
+    if torch.cuda.device_count() == 1:
+        meshes += [make_mesh(["cuda:0"] * 2), make_mesh(["cuda:0"] * 4)]
+    return meshes
+
+
+def mesh_label(mesh) -> str:
+    names = [str(d) for d in mesh.devices]
+    return f"{names[0]} x{len(names)}" if len(set(names)) == 1 else "+".join(names)
+
+
+def same_outputs(got, want) -> bool:
+    """Two tuples (or dicts) of tensors with equal keys, shapes and values."""
+    import torch
+
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+    return len(got) == len(want) and all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+
+def mesh_sharded(params, slices, meshes) -> None:
+    """Phase 9, sharded batches: each class's N_FRAMES_SLICE frames through
+    encode_frames_sharded and decode_frames_sharded at phase 4's rungs,
+    equal to the unsharded calls key for key, the decode equal to the
+    input; then roundtrip_step on the first N_FRAMES_CHECK frames (a
+    partial tail frame), exact, with the unsharded nbytes."""
+    import torch
+
+    from x3_tpu_torch.models.decoder import payload_batch
+    from x3_tpu_torch.ops.decode_kernel import decode_frames
+    from x3_tpu_torch.ops.encode_kernel import encode_frames
+    from x3_tpu_torch.parallel.mesh import decode_frames_sharded, encode_frames_sharded, roundtrip_step
+
+    S = params.samples_per_frame
+    for name in CLASSES:
+        d = slices[name]
+        st = torch.from_numpy(d["samples"].reshape(-1, S)).to(DEV)
+        nv = torch.full((st.shape[0],), S, dtype=torch.int32, device=DEV)
+        want_enc = encode_frames(st, nv, params, "block", d["w"], d["nw"])
+        head = d["samples"][: N_FRAMES_CHECK * S].reshape(N_FRAMES_CHECK, S).copy()
+        n_head = np.full(N_FRAMES_CHECK, S, np.int32)
+        n_head[-1] = S - 321
+        head[-1, S - 321 :] = 0
+        want_nbytes = encode_frames(torch.from_numpy(head).to(DEV), torch.from_numpy(n_head).to(DEV),
+                                    params)["nbytes"]
+        for mesh in meshes:
+            got = encode_frames_sharded(st, nv, params, mesh, d["w"], d["nw"])
+            require(same_outputs(got, want_enc), f"{name} {mesh}: encode_frames_sharded differs")
+            buf, ns, plens, n_blocks = payload_batch(d["payloads"], d["counts"], params, mesh.size)
+            tensors = [torch.from_numpy(a).to(DEV) for a in (buf, ns, plens)]
+            want = decode_frames(*tensors, params, n_blocks)
+            got = decode_frames_sharded(buf, ns, plens, params, mesh, n_blocks)
+            require(same_outputs(got, want), f"{name} {mesh}: decode_frames_sharded differs")
+            f = len(d["counts"])
+            require(not got[1][:f].any() and np.array_equal(got[0][:f].cpu().numpy().reshape(-1), d["samples"]),
+                    f"{name} {mesh}: the sharded decode differs from the input")
+            nbytes, exact = roundtrip_step(params, mesh)(head, n_head)
+            require(bool(exact) and torch.equal(nbytes.cpu(), want_nbytes.cpu()),
+                    f"{name} {mesh}: roundtrip_step exact={bool(exact)}")
+
+
+def mesh_batch_files(params, batch: dict, td: Path, meshes) -> str:
+    """Phase 9, the batch APIs: phase 8's WAVs through wav_to_x3a_batch and
+    x3a_to_wav_batch with each mesh and without one, twice in turns (none,
+    meshes, meshes reversed, none); every archive equal to phase 8's, every
+    WAV to its input; then encode_streams and decode_streams with each
+    mesh equal to the calls without one.  Returns the MB/s line."""
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import multifile
+
+    header = xt.build_archive_header(SAMPLE_RATE, params)
+    srcs, archives = batch["srcs"], batch["archives"]
+    x3as = [td / f"mesh{k}.x3a" for k in range(len(srcs))]
+    backs = [td / f"mesh{k}.back.wav" for k in range(len(srcs))]
+    times: dict = {}
+    order = [None, *meshes, *reversed(meshes), None]
+    for mesh in order:
+        t_enc, res = timed_call(lambda: multifile.wav_to_x3a_batch(srcs, x3as, params, mesh=mesh, device=DEV))
+        require([x.read_bytes() for x in x3as] == archives
+                and all(np.array_equal(r.stats, st) for r, st in zip(res, batch["stats"])),
+                f"wav_to_x3a_batch with mesh {mesh} differs from phase 8's archives")
+        t_dec, counts = timed_call(lambda: multifile.x3a_to_wav_batch(x3as, backs, mesh=mesh, device=DEV))
+        require(counts == batch["lengths"] and all(map(same_wav, backs, srcs)),
+                f"x3a_to_wav_batch with mesh {mesh} differs from the inputs")
+        times.setdefault("none" if mesh is None else mesh_label(mesh), []).append((t_enc, t_dec))
+    for mesh in meshes:
+        enc = multifile.encode_streams(batch["arrays"], params, mesh=mesh, device=DEV)
+        require(all(header + e.data == a and np.array_equal(e.stats, st)
+                    for e, a, st in zip(enc, archives, batch["stats"])),
+                f"encode_streams with mesh {mesh} differs from the call without one")
+        dec = multifile.decode_streams(archives, mesh=mesh, device=DEV)
+        require(all(rate == SAMPLE_RATE and np.array_equal(x, a) for (x, rate), a in zip(dec, batch["arrays"])),
+                f"decode_streams with mesh {mesh} differs from the call without one")
+    for p in (*x3as, *backs):
+        p.unlink()
+    mb = batch["mb"]
+    return "; ".join(f"{label}: wav_to_x3a_batch {mb / max(e for e, _ in t):.1f}-{mb / min(e for e, _ in t):.1f}, "
+                     f"x3a_to_wav_batch {mb / max(d for _, d in t):.1f}-{mb / min(d for _, d in t):.1f}"
+                     for label, t in times.items())
+
+
+def mesh_profiling(params, slices, td: Path) -> str:
+    """Phase 9, the hooks: aot_compile(N_FRAMES_CHECK) and the wall time of
+    the next encode and decode; then trace() of one encode and one decode,
+    whose Chrome trace must hold K1, K2 and K3 device rows."""
+    import torch
+
+    from x3_tpu_torch.utils.profiling import annotate, aot_compile, trace
+
+    S = params.samples_per_frame
+    d = slices[CLASSES[0]]
+    t0 = time.perf_counter()
+    fns = aot_compile(N_FRAMES_CHECK, params, device=DEV)
+    t_aot = time.perf_counter() - t0
+    samples = d["samples"][: N_FRAMES_CHECK * S].reshape(N_FRAMES_CHECK, S)
+    n_valid = np.full(N_FRAMES_CHECK, S, np.int32)
+    t_enc, enc = timed_call(lambda: fns["encode"](samples, n_valid))
+    payload = np.ascontiguousarray(enc["payload_words"].cpu().numpy()).view(np.uint32).byteswap() \
+        .view(np.uint8).reshape(N_FRAMES_CHECK, -1)
+    nbytes = enc["nbytes"].cpu().numpy()
+    t_dec, (out, err) = timed_call(lambda: fns["decode"](payload, n_valid, nbytes))
+    require(not err.any() and np.array_equal(out.cpu().numpy().reshape(-1), samples.reshape(-1)),
+            "aot_compile's encode and decode do not roundtrip")
+    with trace(td / "trace") as prof:
+        with annotate("x3.encode"):
+            enc = fns["encode"](samples, n_valid)
+        with annotate("x3.decode"):
+            fns["decode"](payload, n_valid, nbytes)
+    events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
+    kernel_rows = {e["name"] for e in events if e.get("cat") == "kernel"}
+    names = {"K1": "crc16_fold_kernel", "K2": "encode_kernel", "K3": "decode_kernel"}
+    missing = [k for k, n in names.items() if not any(n in row for row in kernel_rows)]
+    require(not missing, f"the trace holds no device row of {missing}: {sorted(kernel_rows)[:20]}")
+    require({"x3.encode", "x3.decode"} <= {e["name"] for e in events}, "the trace lacks the annotations")
+    return (f"aot_compile({N_FRAMES_CHECK}) {t_aot:.2f} s, then encode {t_enc * 1e3:.1f} ms and decode "
+            f"{t_dec * 1e3:.1f} ms of {N_FRAMES_CHECK} frames; trace: {len(events)} events, "
+            f"{len(kernel_rows)} kernel names, K1-K3 rows present")
+
+
+def phase_mesh(params, kernels: dict, slices, batch: dict, td: Path, smi: str) -> None:
+    """Phase 9: the mesh (frame-sharded encode and decode, roundtrip_step,
+    dryrun_multichip, the batch APIs' mesh=), the profiling hooks and a
+    short fuzz soak of K3 against its plain version."""
+    import torch
+
+    from x3_tpu_torch.entry import dryrun_multichip
+    from x3_tpu_torch.tools import fuzz_soak
+
+    for mod in kernels.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    meshes = smoke_meshes()
+    mesh_sharded(params, slices, meshes)
+    log(f"# phase 9 sharded: {', '.join(mesh_label(m) for m in meshes)}: encode_frames_sharded and "
+        f"decode_frames_sharded equal the unsharded calls on all {N_FRAMES_SLICE} frames of each class at "
+        f"phase 4's rungs, decode = input; roundtrip_step exact on {N_FRAMES_CHECK} frames; "
+        f"{time.perf_counter() - t0:.1f} s")
+    dryrun_multichip(4)
+    t1 = time.perf_counter()
+    rates = mesh_batch_files(params, batch, td, meshes)
+    log(f"# phase 9 batch APIs: {len(batch['srcs'])} WAVs with mesh= equal phase 8's archives and the "
+        f"inputs; encode_streams/decode_streams with mesh= equal the calls without one; "
+        f"{time.perf_counter() - t1:.1f} s")
+    log(f"# phase 9 batch MB/s, min-max of 2 calls each, not claimed: {rates}; {smi}")
+    log(f"# phase 9 profiling: {mesh_profiling(params, slices, td)}")
+    t1 = time.perf_counter()
+    soak = fuzz_soak.soak(SOAK_TRIALS, SOAK_SEED, params, device=DEV, log=lambda m: log(f"# phase 9 soak {m}"))
+    require(not soak["failures"] and soak["error_lanes"] > 0 and soak["launches"] > 0,
+            f"the fuzz soak failed: {soak}")
+    log(f"# phase 9 soak: {SOAK_TRIALS} trials (seed {SOAK_SEED:#x}), {soak['plain_calls']} plain calls, "
+        f"{soak['launches']} K3 launches, {soak['error_lanes']} error lanes, 0 failures; "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.synchronize()
+    launches = {k: mod.launch_count for k, mod in kernels.items()}
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched by phase 9")
+    log(f"# phase 9 launches: {launches}; {time.perf_counter() - t0:.1f} s")
 
 
 def profile_route_kernels(params, reps: int = 20) -> None:
@@ -1500,9 +1707,11 @@ def main() -> int:
     # Phase 7: the file layer; its own launch counts.
     rates7 = phase_files(params, slices, kernels, "; ".join(smi))
 
-    # Phase 8: multi-file batching and multichannel .x3m; its own launch
-    # counts.
-    phase_batch(params, kernels, "; ".join(smi), rates7)
+    # Phases 8 and 9: multi-file batching and multichannel .x3m, then the
+    # mesh, the profiling hooks and the soak; each its own launch counts.
+    with tempfile.TemporaryDirectory(prefix="x3_smoke_") as tmp:
+        batch = phase_batch(params, kernels, "; ".join(smi), rates7, Path(tmp))
+        phase_mesh(params, kernels, slices, batch, Path(tmp), "; ".join(smi))
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": launches[k], "max_abs_err": errs.max.get(k, 0),

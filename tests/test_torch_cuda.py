@@ -422,3 +422,69 @@ def test_x3m_on_cuda_matches_cpu(cuda, tmp_path):
         got[str(dev)] = {p.name: p.read_bytes() for p in sorted(d.iterdir())}
     assert got["cpu"] == got[str(cuda)]
     assert got["cpu"]["back.wav"] == src.read_bytes()
+
+
+def _cuda_meshes():
+    """[cuda:0] * 2, and every visible card where there are two or more."""
+    from x3_tpu_torch.parallel.mesh import make_mesh
+
+    meshes = [make_mesh(["cuda:0"] * 2)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    return meshes
+
+
+@pytest.mark.parametrize("params", GEOMETRIES[:2], ids=["tiny", "default"])
+def test_sharded_on_cuda_matches_unsharded(cuda, params):
+    """encode_frames_sharded and decode_frames_sharded (K2 + K1, K3 on each
+    shard) equal the unsharded calls on the card, key for key, and
+    roundtrip_step is exact with the unsharded sizes."""
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda, encode_cuda
+    from x3_tpu_torch.ops.decode_kernel import decode_frames
+    from x3_tpu_torch.ops.encode_kernel import encode_frames
+    from x3_tpu_torch.parallel.mesh import decode_frames_sharded, encode_frames_sharded, roundtrip_step
+
+    frames, n_valid = _frames(np.random.default_rng(25), params, 16)
+    st, nv = torch.from_numpy(frames).to(cuda), torch.from_numpy(n_valid).to(cuda)
+    want = encode_frames(st, nv, params)
+    words = want["payload_words"].cpu().numpy().view(np.uint32).byteswap().view(np.uint8).reshape(16, -1)
+    buf = torch.from_numpy(words.copy()).to(cuda)
+    want_dec = decode_frames(buf, nv, want["nbytes"], params)
+    for mesh in _cuda_meshes():
+        for mod in (crc_cuda, decode_cuda, encode_cuda):
+            mod.launch_count = 0
+        got = encode_frames_sharded(frames, n_valid, params, mesh)
+        assert got.keys() == want.keys()
+        _assert_all_equal(list(got.values()), list(want.values()), f"sharded encode on {mesh}")
+        _assert_all_equal(decode_frames_sharded(buf, nv, want["nbytes"], params, mesh), want_dec,
+                          f"sharded decode on {mesh}")
+        nbytes, exact = roundtrip_step(params, mesh)(frames, n_valid)
+        assert bool(exact) and torch.equal(nbytes.cpu(), want["nbytes"].cpu())
+        assert min(crc_cuda.launch_count, decode_cuda.launch_count, encode_cuda.launch_count) >= mesh.size
+
+
+def test_aot_compile_on_cuda(cuda):
+    """aot_compile(768) builds the kernels and leaves encode and decode
+    functions that run on the card and roundtrip."""
+    from x3_tpu_torch.utils.profiling import aot_compile
+
+    params = Parameters()
+    S = params.samples_per_frame
+    fns = aot_compile(768, params)
+    frames = _mixed(np.random.default_rng(26), 768 * S).reshape(768, S)
+    n_valid = np.full(768, S, np.int32)
+    enc = fns["encode"](frames, n_valid)
+    assert enc["nbytes"].is_cuda
+    words = enc["payload_words"].cpu().numpy().view(np.uint32).byteswap().view(np.uint8).reshape(768, -1)
+    out, err = fns["decode"](words, n_valid, enc["nbytes"].cpu().numpy())
+    assert not err.any() and np.array_equal(out.cpu().numpy(), frames)
+
+
+def test_fuzz_soak_on_cuda(cuda):
+    """16 trials of the fuzz soak: K3 equals its plain version on every
+    mutated lane, some lanes err, and K3 was launched."""
+    from x3_tpu_torch.tools import fuzz_soak
+
+    summary = fuzz_soak.soak(16, 7, device=cuda)
+    assert summary["failures"] == 0 and summary["error_lanes"] > 0 and summary["launches"] >= 16
+    assert fuzz_soak.verdict(summary, cuda, "fuzz soak") == 0

@@ -331,7 +331,7 @@ def test_sharded_batch_conversion_like_x3_tpu(tmp_path):
     assert [b.read_bytes() for b in backs] == [s.read_bytes() for s in srcs]
 
 
-# ---- what the port does not run: a mesh, and a card that is not there ----
+# ---- a mesh, and a card that is not there ----
 
 ENTRY_POINTS = {
     "encode_streams": lambda m, a, o, **kw: m.multifile.encode_streams([np.zeros(40, np.int16)], **kw),
@@ -350,15 +350,89 @@ def _inputs(tmp_path):
     return {"wav": src, "x3a": tmp_path / "in.x3a"}
 
 
-@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
-def test_mesh_raises_and_writes_nothing(tmp_path, entry):
-    import x3_tpu_torch.multifile
-    import x3_tpu_torch.streaming
+def _mesh_inputs(tmp_path):
+    """Many TINY frames for the mesh runs: _wavs' six WAVs (13 frames) and
+    their archives, and streams and a 4-channel capture of 25 frames."""
+    from x3_tpu_torch import multifile as port
 
-    out = tmp_path / ("out.wav" if entry == "x3a_to_wav_batch" else "out.x3a")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ENTRY_POINTS[entry](x3_tpu_torch, _inputs(tmp_path), out, mesh=object(), device="cpu")
-    assert not out.exists()
+    srcs, _ = _wavs(tmp_path)
+    x3as = [tmp_path / f"a{i}.x3a" for i in range(len(srcs))]
+    port.wav_to_x3a_batch(srcs, x3as, port_params(TINY), device="cpu")
+    streams = [_signal(40 + k, n) for k, n in enumerate([3 * S + 5, 0, S, 1, 9 * S - 1, 11 * S + 2])]
+    chans = np.stack([_signal(50 + c, 5 * S + 3) for c in range(4)])
+    return {"wavs": srcs, "x3as": x3as, "streams": streams, "chans": chans}
+
+
+def _mesh_run(entry, pkg, inp, tmp_path, tag, mesh, **kw):
+    """What `entry` of package `pkg` (x3_tpu or x3_tpu_torch) returns and
+    writes on the mesh inputs, at batch_frames 3 (encode) or 7 (decode),
+    neither a multiple of 4."""
+    import importlib
+
+    m = importlib.import_module(f"{pkg}.multifile")
+    params = TINY if pkg == "x3_tpu" else port_params(TINY)
+    if entry == "encode_streams":
+        return [(r.data, r.stats.tolist()) for r in m.encode_streams(inp["streams"], params, 3, mesh=mesh, **kw)]
+    if entry == "encode_channels":
+        st = importlib.import_module(f"{pkg}.streaming")
+        return [(r.data, r.stats.tolist()) for r in st.encode_channels(inp["chans"], params, mesh=mesh, **kw)]
+    if entry == "decode_streams":
+        return [(x.tobytes(), rate) for x, rate in
+                m.decode_streams([p.read_bytes() for p in inp["x3as"]], 7, mesh=mesh, **kw)]
+    if entry == "wav_to_x3a_batch":
+        outs = [tmp_path / f"{tag}{i}.x3a" for i in range(len(inp["wavs"]))]
+        res = m.wav_to_x3a_batch(inp["wavs"], outs, params, 3, mesh=mesh, **kw)
+        return [(r.nbytes, r.stats.tolist()) for r in res], [o.read_bytes() for o in outs]
+    outs = [tmp_path / f"{tag}{i}.wav" for i in range(len(inp["x3as"]))]
+    counts = m.x3a_to_wav_batch(inp["x3as"], outs, 7, mesh=mesh, **kw)
+    return counts, [o.read_bytes() for o in outs]
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_mesh_matches_unsharded(tmp_path, entry):
+    """Every batch entry point with a 4-entry CPU mesh (batches rounded up
+    to a multiple of 4) gives what it gives without a mesh, and what
+    x3_tpu gives with its 8-device mesh."""
+    from x3_tpu.parallel.mesh import make_mesh as ref_mesh
+
+    from x3_tpu_torch.parallel.mesh import make_mesh
+
+    inp = _mesh_inputs(tmp_path)
+    got = _mesh_run(entry, "x3_tpu_torch", inp, tmp_path, "mesh", make_mesh(["cpu"] * 4), device="cpu")
+    assert got == _mesh_run(entry, "x3_tpu_torch", inp, tmp_path, "none", None, device="cpu")
+    assert got == _mesh_run(entry, "x3_tpu", inp, tmp_path, "ref", ref_mesh())
+    if entry == "x3a_to_wav_batch":
+        assert got[0] == LENGTHS and got[1] == [w.read_bytes() for w in inp["wavs"]]
+
+
+@pytest.mark.parametrize("damaged_set", ["decode-then-crc"], indirect=True)
+def test_mesh_damage_raises_like_unsharded(damaged_set, tmp_path):
+    """A damaged archive set under a 4-entry mesh raises the class it
+    raises without one, after writing the same WAVs, and as x3_tpu does
+    with its mesh: at 10 frames a batch (12 with the mesh) the decode error
+    and the CRC mismatch share the first batch, and the CRC, checked on
+    the shards' devices, wins."""
+    from x3_tpu import multifile as ref
+    from x3_tpu.parallel.mesh import make_mesh as ref_mesh
+
+    from x3_tpu_torch import multifile as port
+    from x3_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(["cpu"] * 4)
+    results = []
+    for who, fn in (
+        ("mesh", lambda o: port.x3a_to_wav_batch(damaged_set, o, 10, mesh=mesh, device="cpu")),
+        ("none", lambda o: port.x3a_to_wav_batch(damaged_set, o, 10, device="cpu")),
+        ("ref", lambda o: ref.x3a_to_wav_batch(damaged_set, o, 10, mesh=ref_mesh())),
+    ):
+        outs = [tmp_path / f"{who}{i}.wav" for i in range(len(damaged_set))]
+        results.append((outcome(lambda: fn(outs)), [o.read_bytes() if o.exists() else None for o in outs]))
+    assert results[0] == results[1] == results[2]
+    assert results[0][0] == ("raise", "FrameHeaderInvalidPayloadCRC")
+    archives = [p.read_bytes() for p in damaged_set]
+    got = outcome(lambda: port.decode_streams(archives, 10, mesh=mesh, device="cpu"))
+    assert got == outcome(lambda: port.decode_streams(archives, 10, device="cpu")) == \
+        outcome(lambda: ref.decode_streams(archives, 10, mesh=ref_mesh())) == results[0][0]
 
 
 @pytest.mark.parametrize("entry", list(ENTRY_POINTS))
@@ -378,9 +452,18 @@ def test_entry_points_default_to_cuda(tmp_path, entry):
 
 
 def test_lazy_package_exports():
+    import x3_tpu
     import x3_tpu_torch
-    from x3_tpu_torch import multifile
+    from x3_tpu_torch import channel, engine, errors, multifile, streaming
 
     assert x3_tpu_torch.wav_to_x3a_batch is multifile.wav_to_x3a_batch
     assert x3_tpu_torch.x3a_to_wav_batch is multifile.x3a_to_wav_batch
-    assert {"wav_to_x3a_batch", "x3a_to_wav_batch"} <= set(x3_tpu_torch.__all__)
+    assert x3_tpu_torch.X3Error is errors.X3Error
+    assert x3_tpu_torch.Channel is channel.Channel and x3_tpu_torch.IterChannel is channel.IterChannel
+    assert x3_tpu_torch.StreamEncoder is streaming.StreamEncoder
+    assert x3_tpu_torch.resolve_engine is engine.resolve_engine
+    assert set(x3_tpu.__all__) <= set(x3_tpu_torch.__all__)
+    for name in x3_tpu_torch.__all__:
+        getattr(x3_tpu_torch, name)
+    with pytest.raises(AttributeError):
+        x3_tpu_torch.no_such_name

@@ -196,7 +196,9 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
             "x3_tpu_torch.streaming", "x3_tpu_torch.files", "x3_tpu_torch.channel",
             "x3_tpu_torch.cli", "x3_tpu_torch.wav_to_str", "x3_tpu_torch.utils.io",
             "x3_tpu_torch.utils.wav", "x3_tpu_torch.utils.xmlmeta", "x3_tpu_torch.multifile",
-            "x3_tpu_torch.multichannel", "x3_tpu_torch.parallel.multihost"} <= set(mods)
+            "x3_tpu_torch.multichannel", "x3_tpu_torch.parallel.multihost", "x3_tpu_torch.parallel.mesh", "x3_tpu_torch.models.sharding",
+            "x3_tpu_torch.entry", "x3_tpu_torch.utils.profiling", "x3_tpu_torch.tools.decode_parity",
+            "x3_tpu_torch.tools.fuzz_soak"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "import x3_tpu_torch\n"

@@ -15,7 +15,13 @@ for NVIDIA Hopper (csrc/*.cu, built with nvcc on first use):
   the file layer (files.py), and `python -m x3_tpu_torch`, its CLI;
 * `wav_to_x3a_batch` / `x3a_to_wav_batch` — many files sharing device
   batches (multifile.py), and the multi-channel .x3m manifests
-  (multichannel.py).
+  (multichannel.py);
+* `Channel`, `IterChannel`, `StreamEncoder`, `resolve_engine` and the
+  error root `X3Error`, as x3_tpu exports them;
+* `parallel.mesh` — frame-sharded encode and decode over a mesh of
+  devices (the batch APIs' `mesh=`), `entry` — the flagship step and the
+  multi-device dry run, `utils.profiling` — trace, annotate and warm-up
+  hooks, and `tools` — the decode parity check and the fuzz soak.
 
 device="cuda" runs the kernels (and raises when there is no GPU);
 device="cpu" runs their plain PyTorch versions.  The package shares no
@@ -29,6 +35,9 @@ from __future__ import annotations
 __all__ = [
     "Parameters",
     "X3aSpec",
+    "X3Error",
+    "Channel",
+    "IterChannel",
     "encode",
     "decode_frame",
     "decode_frames_batch",
@@ -39,13 +48,16 @@ __all__ = [
     "x3a_info",
     "verify_x3a",
     "X3aReader",
+    "StreamEncoder",
     "wav_to_x3a_batch",
     "x3a_to_wav_batch",
+    "resolve_engine",
 ]
 
 _FILES = ("wav_to_x3a", "x3a_to_wav", "x3a_info", "verify_x3a", "X3aReader")
 
 from .archive import build_archive_header, walk_frames
+from .errors import X3Error
 from .params import Parameters, X3aSpec
 
 
@@ -67,4 +79,16 @@ def __getattr__(name):
         from . import multifile
 
         return getattr(multifile, name)
+    if name in ("Channel", "IterChannel"):
+        from . import channel
+
+        return getattr(channel, name)
+    if name == "StreamEncoder":
+        from .streaming import StreamEncoder
+
+        return StreamEncoder
+    if name == "resolve_engine":
+        from .engine import resolve_engine
+
+        return resolve_engine
     raise AttributeError(name)

@@ -9,12 +9,11 @@ there too."""
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..device import resolve_device
 from ..errors import decode_error
 from ..ops.encode_kernel import frame_geometry, width_rungs
 from ..params import Parameters
+from .sharding import check_mesh, shard_map
 
 
 def decode_geometry(params: Parameters, n_samples, payload_lens):
@@ -44,14 +43,15 @@ def decode_geometry(params: Parameters, n_samples, payload_lens):
     return n_blocks, w
 
 
-def payload_batch(payloads, n_samples, params: Parameters):
+def payload_batch(payloads, n_samples, params: Parameters, shards: int = 1):
     """The host arrays one decode batch walks: (buf uint8 [Fp, w*4] of
     zero-padded payloads, ns int32 [Fp], plens int32 [Fp], n_blocks), with
-    the lane count Fp padded to a power of two (pad lanes hold n = 0 and
-    no bytes)."""
+    the lane count Fp padded to `shards` equal shards of a power of two
+    lanes each (pad lanes hold n = 0 and no bytes)."""
     arrs = [np.frombuffer(p, dtype=np.uint8) for p in payloads]
     n_blocks, w = decode_geometry(params, n_samples, [len(a) for a in arrs])
-    fp = 1 << max(0, (len(arrs) - 1).bit_length())
+    per_shard = -(-len(arrs) // shards)
+    fp = shards * (1 << max(0, (per_shard - 1).bit_length()))
     buf = np.zeros((fp, w * 4), dtype=np.uint8)
     ns = np.zeros(fp, dtype=np.int32)
     plens = np.zeros(fp, dtype=np.int32)
@@ -63,30 +63,29 @@ def payload_batch(payloads, n_samples, params: Parameters):
 
 
 def decode_frames_batch(payloads, n_samples, params: Parameters | None = None,
-                        check_crcs=None, device="cuda"):
+                        check_crcs=None, device="cuda", mesh=None):
     """Decode a list of frame payloads (bytes) with their sample counts.
 
     Returns (list of int16 arrays, err int32 array), or with check_crcs (the
     expected payload CRC16s) also a bool array crc_ok, computed on the
     device over the same buffer.  err holds the per-frame codes of
-    ops.decode_kernel (0 ok, 1 invalid BFP, 2 OOB inverse, 3 overrun)."""
+    ops.decode_kernel (0 ok, 1 invalid BFP, 2 OOB inverse, 3 overrun).
+    mesh: a models.sharding.Mesh of `device`'s type to shard the batch over
+    (each shard walked and CRC-checked on its entry's device)."""
     from ..ops.decode_kernel import decode_frames, decode_frames_checked
 
-    dev = resolve_device(device)
+    mesh = check_mesh(mesh, device)
     params = params or Parameters()
     f = len(payloads)
     if f == 0:
         empty = ([], np.zeros(0, np.int32))
         return empty if check_crcs is None else empty + (np.zeros(0, bool),)
-    buf, ns, plens, n_blocks = payload_batch(payloads, n_samples, params)
-    buf_t = torch.from_numpy(buf).to(dev)
-    ns_t = torch.from_numpy(ns).to(dev)
-    plens_t = torch.from_numpy(plens).to(dev)
+    buf, ns, plens, n_blocks = payload_batch(payloads, n_samples, params, mesh.size)
+    run = decode_frames if check_crcs is None else decode_frames_checked
+    outs = shard_map(lambda p, n, pl: run(p, n, pl, params, n_blocks), mesh, buf, ns, plens)
+    out, err = outs[0], outs[1]
     if check_crcs is not None:
-        out, err, crc = decode_frames_checked(buf_t, ns_t, plens_t, params, n_blocks)
-        crc_ok = crc[:f].cpu().numpy() == np.asarray(check_crcs, dtype=np.int64)
-    else:
-        out, err = decode_frames(buf_t, ns_t, plens_t, params, n_blocks)
+        crc_ok = outs[2][:f].cpu().numpy() == np.asarray(check_crcs, dtype=np.int64)
     out = out[:f].cpu().numpy()
     err = err[:f].cpu().numpy()
     outs = [out[i, : ns[i]].copy() for i in range(f)]

@@ -25,6 +25,7 @@ from ..ops.encode_kernel import (
     width_rungs,
 )
 from ..params import Parameters
+from .sharding import Mesh, shard_map
 
 
 class EncodeResult:
@@ -101,18 +102,28 @@ def _start_rung(rungs: list[int], hint: int | None) -> int:
 
 
 def encode_batch(batch_t: torch.Tensor, n_valid_t: torch.Tensor, params: Parameters, rung: int,
-                 nw_rung: int):
-    """Encode one [F, S] batch on its tensors' device (K2 + K1 on "cuda")
-    at the payload-width and block-width rungs `rung` / `nw_rung` of
-    width_rungs / block_width_rungs, escalated sticky when it overflows.
+                 nw_rung: int, mesh: Mesh | None = None):
+    """Encode one [F, S] batch (K2 + K1 on "cuda") at the payload-width and
+    block-width rungs `rung` / `nw_rung` of width_rungs / block_width_rungs,
+    escalated sticky when it overflows.
+
+    mesh: the models.sharding.Mesh to shard the batch over (F a multiple
+    of its size; each shard on its entry's device), by default a one-entry
+    mesh of the tensors' device; the rungs escalate once for all shards,
+    from the gathered sizes.
 
     Returns (payload uint8 [F, 4*wcols] of big-endian payload bytes, with
     only the populated word columns copied to the host; nbytes [F]; crc
     [F]; stats int [F, 6]; the rung and nw_rung the batch ended at)."""
     rungs = width_rungs(params)
     nw_rungs = block_width_rungs(params)
+    mesh = mesh or Mesh([batch_t.device])
+
+    def run(w, nw):
+        return shard_map(lambda s, n: encode_frames(s, n, params, "block", w, nw), mesh, batch_t, n_valid_t)
+
     w, nw = rungs[rung], nw_rungs[nw_rung]
-    res = encode_frames(batch_t, n_valid_t, params, "block", w, nw)
+    res = run(w, nw)
     nbytes = res["nbytes"].cpu().numpy()
     blockfit = res["blockfit_bits"].cpu().numpy()
     # Sticky escalation straight to the first fitting rung.  K2 and K6
@@ -132,7 +143,7 @@ def encode_batch(batch_t: torch.Tensor, n_valid_t: torch.Tensor, params: Paramet
                 break
         w = rungs[rung]
     if redo:
-        res = encode_frames(batch_t, n_valid_t, params, "block", w, nw)
+        res = run(w, nw)
         nbytes = res["nbytes"].cpu().numpy()
     # Copy only the populated word columns to the host.
     maxw = max(1, (int(nbytes.max(initial=0)) + 3) // 4)

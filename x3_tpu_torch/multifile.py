@@ -10,8 +10,9 @@ device="cpu" runs their plain PyTorch versions.
 The batch defaults are the port's engine.ENCODE_BATCH_FRAMES and
 DECODE_BATCH_FRAMES (768 frames each), in place of x3_tpu's
 JAX_ENCODE_BATCH_FRAMES / JAX_DECODE_BATCH_FRAMES, which were measured on
-a TPU.  The `mesh` argument (frame-sharded multi-GPU runs) is not ported
-yet: a mesh raises NotImplementedError."""
+a TPU.  With a `mesh` (parallel.mesh), each batch is rounded up to a
+multiple of the mesh's size and sharded over its devices, which must be of
+`device`'s type; the bytes do not depend on the mesh."""
 
 from __future__ import annotations
 
@@ -21,11 +22,11 @@ import numpy as np
 import torch
 
 from . import archive
-from .device import resolve_device
 from .engine import resolve_batch_frames
 from .errors import FrameHeaderInvalidPayloadCRC, decode_error
 from .models.decoder import decode_frames_batch, payload_batch
 from .models.encoder import EncodeResult, _assemble, build_frame_headers, encode_batch
+from .models.sharding import check_mesh, shard_map
 from .ops.crc_torch import crc16_words
 from .ops.decode_kernel import payload_words
 from .params import Parameters
@@ -34,12 +35,9 @@ from .utils.io import open_overwrite, prefetch_iter
 from .utils.wav import WavWriter
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (frame-sharded multi-GPU encode and decode) is not ported to x3_tpu_torch yet: "
-            "it comes with the port of x3_tpu.parallel.mesh"
-        )
+def _round_to_mesh(batch_frames: int, mesh) -> int:
+    """batch_frames rounded up to a multiple of the mesh's size."""
+    return -(-batch_frames // mesh.size) * mesh.size
 
 
 def _shard(a, b, process_index, process_count):
@@ -75,8 +73,7 @@ def encode_streams(
     """Encode many independent mono streams, sharing device batches.
 
     streams: list of int16 arrays.  Returns a list of EncodeResult."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    mesh = check_mesh(mesh, device)
     params = params or Parameters()
     spf = params.samples_per_frame
 
@@ -96,13 +93,15 @@ def encode_streams(
         parts[si].append(frames)
         stats[si] += st
 
-    _run_encode_worklist(work, read, emit, params, batch_frames, source_id, device)
+    _run_encode_worklist(work, read, emit, params, batch_frames, source_id, mesh)
     return [EncodeResult(b"".join(p), st) for p, st in zip(parts, stats)]
 
 
-def _run_encode_worklist(work, read, emit, params: Parameters, batch_frames, source_id: int, device):
+def _run_encode_worklist(work, read, emit, params: Parameters, batch_frames, source_id: int, mesh):
     """Drive the batched encode over a frame worklist of (key, start, n)
-    entries, batch after batch at the sticky rungs of encode_batch.
+    entries, batch after batch at the sticky rungs of encode_batch.  Each
+    batch is padded with dummy frames to a multiple of the mesh's size and
+    sharded over it, all shards at one rung.
 
     read(key, start, n): the n samples of `key` from `start`, for each run
       of a key's consecutive frames in a batch; the batches are filled on a
@@ -110,15 +109,16 @@ def _run_encode_worklist(work, read, emit, params: Parameters, batch_frames, sou
       (utils.io.prefetch_iter, depth 1: one extra batch buffer).
     emit(key, frames, stats): a run's headers and payloads as bytes, and
       their summed int64 stats [6]."""
-    batch_frames = resolve_batch_frames(batch_frames, "torch", decode=False)
+    batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=False), mesh)
     spf = params.samples_per_frame
     rung = nw_rung = 0
 
     def _filled():
         for base in range(0, len(work), batch_frames):
             chunk = work[base : base + batch_frames]
-            batch = np.zeros((len(chunk), spf), dtype=np.int16)
-            n_valid = np.asarray([n for _, _, n in chunk], dtype=np.int32)
+            batch = np.zeros((_round_to_mesh(len(chunk), mesh), spf), dtype=np.int16)
+            n_valid = np.zeros(len(batch), dtype=np.int32)  # dummy frames past the chunk
+            n_valid[: len(chunk)] = [n for _, _, n in chunk]
             for key, a, b in _runs(chunk):
                 # A run's frames are consecutive rows: one read fills them,
                 # only its last frame may be partial.
@@ -128,20 +128,25 @@ def _run_encode_worklist(work, read, emit, params: Parameters, batch_frames, sou
 
     for chunk, batch, n_valid in prefetch_iter(_filled(), depth=1):
         payload, nbytes, crc, bstats, rung, nw_rung = encode_batch(
-            torch.from_numpy(batch).to(device), torch.from_numpy(n_valid).to(device), params, rung, nw_rung
-        )
-        headers = build_frame_headers(n_valid, source_id, nbytes, crc)
+            torch.from_numpy(batch), torch.from_numpy(n_valid), params, rung, nw_rung, mesh)
+        m = len(chunk)
+        headers = build_frame_headers(n_valid[:m], source_id, nbytes[:m], crc[:m])
         for key, a, b in _runs(chunk):
             emit(key, _assemble(headers[a:b], payload[a:b], nbytes[a:b]),
                  bstats[a:b].sum(axis=0, dtype=np.int64))
 
 
-def _payload_crcs_ok(payloads, want_crcs, params: Parameters, device) -> np.ndarray:
+def _payload_crcs_ok(payloads, want_crcs, params: Parameters, mesh) -> np.ndarray:
     """bool [len(payloads)]: each payload's CRC16 equals its expected value,
-    computed on `device` (K1 on "cuda") over a decode batch's buffer."""
-    buf, _, plens, _ = payload_batch(payloads, [0] * len(payloads), params)
-    words = payload_words(torch.from_numpy(buf).to(device))
-    crc = crc16_words(words, torch.from_numpy(plens).to(device), words.shape[1])
+    computed over a decode batch's buffer sharded over the mesh's devices
+    (K1 on a card)."""
+    buf, _, plens, _ = payload_batch(payloads, [0] * len(payloads), params, mesh.size)
+
+    def crcs(b, pl):
+        words = payload_words(b)
+        return crc16_words(words, pl, words.shape[1])
+
+    crc = shard_map(crcs, mesh, buf, plens)
     return crc[: len(payloads)].cpu().numpy() == np.asarray(want_crcs, dtype=np.int64)
 
 
@@ -159,9 +164,8 @@ def decode_streams(
     of (samples int16 array, sample_rate).  As in x3_tpu, the payload CRCs
     of every archive are checked before any frame is decoded, and a CRC
     mismatch or a frame that fails to decode raises its error class."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
-    batch_frames = resolve_batch_frames(batch_frames, "torch", decode=True)
+    mesh = check_mesh(mesh, device)
+    batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
     specs = []
     groups: dict[Parameters, list] = {}  # params -> [(archive_idx, frame_idx, payload, n_samples)]
     for ai, data in enumerate(archives):
@@ -172,7 +176,7 @@ def decode_streams(
         for base in range(0, len(index), batch_frames):
             ok = _payload_crcs_ok(payloads[base : base + batch_frames],
                                   [h.payload_crc for _, h in index[base : base + batch_frames]],
-                                  spec.params, device)
+                                  spec.params, mesh)
             if not ok.all():
                 bad = base + int(np.nonzero(~ok)[0][0])
                 raise FrameHeaderInvalidPayloadCRC(f"archive {ai} frame {bad} payload CRC mismatch")
@@ -185,7 +189,7 @@ def decode_streams(
         for base in range(0, len(work), batch_frames):
             chunk = work[base : base + batch_frames]
             dec, err = decode_frames_batch([p for _, _, p, _ in chunk], [n for _, _, _, n in chunk], params,
-                                           device=device)
+                                           device=mesh.device_type, mesh=mesh)
             if err.any():
                 bad = int(np.nonzero(err)[0][0])
                 ai, fi = chunk[bad][0], chunk[bad][1]
@@ -220,8 +224,7 @@ def wav_to_x3a_batch(
     converts only its strided shard of the file list
     (parallel.multihost.shard_worklist).  The codec needs no collectives,
     so processes never communicate."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    mesh = check_mesh(mesh, device)
     wav_filenames, x3a_filenames = _shard(wav_filenames, x3a_filenames, process_index, process_count)
     params = params or Parameters()
     spf = params.samples_per_frame
@@ -256,7 +259,7 @@ def wav_to_x3a_batch(
             written[fi] += len(frames)
             stats[fi] += st
 
-        _run_encode_worklist(work, read, emit, params, batch_frames, 1, device)
+        _run_encode_worklist(work, read, emit, params, batch_frames, 1, mesh)
         for f in outs:  # open_overwrite skips O_TRUNC; cut stale tails now
             f.truncate()
         return [EncodeResult(b"", st, nbytes=nb) for st, nb in zip(stats, written)]
@@ -289,10 +292,9 @@ def x3a_to_wav_batch(
 
     process_index/process_count: multi-process input sharding (strided);
     this process decodes only its shard of the archive list."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    mesh = check_mesh(mesh, device)
     x3a_filenames, wav_filenames = _shard(x3a_filenames, wav_filenames, process_index, process_count)
-    batch_frames = resolve_batch_frames(batch_frames, "torch", decode=True)
+    batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
 
     handles, writers = [], {}
     try:
@@ -338,7 +340,7 @@ def x3a_to_wav_batch(
                 heads = [h for _, _, _, h in chunk]
                 dec, err, crc_ok = decode_frames_batch(
                     payloads, [h.samples for h in heads], params,
-                    check_crcs=[h.payload_crc for h in heads], device=device,
+                    check_crcs=[h.payload_crc for h in heads], device=mesh.device_type, mesh=mesh,
                 )
                 if not crc_ok.all():
                     ai, fi = chunk[int(np.nonzero(~crc_ok)[0][0])][:2]

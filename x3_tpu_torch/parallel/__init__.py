@@ -1,1 +1,2 @@
-"""Multi-process input sharding of the port (x3_tpu.parallel)."""
+"""Scale-out of the port (x3_tpu.parallel): the device mesh and multi-process
+input sharding."""

@@ -1,13 +1,13 @@
 """Multi-process input pipeline: shard file worklists across processes
-(x3_tpu.parallel.multihost.shard_worklist).
+(x3_tpu.parallel.multihost).
 
 The codec needs no collectives (frames are self-contained), so running it
 on many hosts is an input-pipeline concern: each process takes a
-deterministic shard of the file list, converts it on its own device and
-never talks to the others.  In a `torch.distributed` job, call
-`shard_worklist(paths)` on every rank and feed the shard to
-`multifile.wav_to_x3a_batch`.  The mesh over one host's GPUs
-(x3_tpu.parallel.mesh, multihost.local_mesh) is not ported yet."""
+deterministic shard of the file list, converts it with its own mesh over
+its local devices and never talks to the others.  In a
+`torch.distributed` job, call `shard_worklist(paths)` on every rank and
+feed the shard to `multifile.wav_to_x3a_batch(..., mesh=local_mesh())`.
+"""
 
 from __future__ import annotations
 
@@ -31,3 +31,13 @@ def shard_worklist(items, process_index: int | None = None, process_count: int |
     if not 0 <= process_index < process_count:
         raise ValueError(f"process_index {process_index} not in [0, {process_count})")
     return list(items)[process_index::process_count]
+
+
+def local_mesh(axis_name: str = "frames", *, device="cuda"):
+    """A mesh over this process's visible cards (parallel.mesh.make_mesh),
+    or a one-entry CPU mesh for device="cpu": per-process data
+    parallelism, with no axis across processes since the codec needs no
+    collectives."""
+    from .mesh import make_mesh
+
+    return make_mesh(None, axis_name, device=device)
