@@ -85,7 +85,19 @@ Phases (any failure raises and the exit code is non-zero):
    aot_compile(768) and the time of the next encode and decode, and a
    trace() of one encode and decode that must hold K1-K3 device rows; a
    short fuzz soak of K3 against its plain version (SOAK_TRIALS trials
-   from SOAK_SEED); K1-K3 must have been launched by it.
+   from SOAK_SEED); K1-K3 must have been launched by it;
+10. the host tools and the examples (x3_tpu_torch.tools, examples/torch_*):
+   tools.compile_sweep in a process of its own (a cold build of the six
+   kernels into a new directory, then every (kernel, rung) the file
+   pipeline dispatches); tools.fuzz_differential with --devices cuda,cpu
+   (FUZZ_TRIALS trials from FUZZ_SEED, two at each of its nine
+   geometries), a process beside the rest; tools.roundtrip_corpus's
+   synthetic WAVs through the file layer on the card, each archive equal
+   to the port's CPU encode; each torch example once on the card; then K2
+   and K3 at block_len 1, 60 and 1,500 blocks a frame (TOOL_GEOMETRIES),
+   K2 against its plain version, the decode equal to the input, with
+   their device times; K1-K3 must have been launched by the corpus and
+   the examples, and every tool must exit 0.
 
 The line before the last is a JSON object describing each kernel (with
 its least time on the card from the bytes it must move, at 3.35 TB/s);
@@ -130,7 +142,14 @@ X3M_TAIL = 3_333  # samples of each channel's partial last frame
 X3M_DAMAGED_CHANNEL = 2  # phase 8: the channel with a damaged payload byte
 SOAK_TRIALS = 3  # phase 9: fuzz soak trials (each one plain decode call here)
 SOAK_SEED = 2  # the soak's kinds rotate from the seed: hydrophone, music, noise
-GOLDEN = Path(__file__).resolve().parent / "tests" / "data" / "golden.npz"
+FUZZ_TRIALS = 18  # phase 10: fuzz_differential trials, two a geometry
+FUZZ_SEED = 11
+TOOL_GEOMETRIES = ((1, 16), (60, 5), (10, 1500))  # phase 10: (block_len, blocks_per_frame) K2 and K3 are timed at
+TOOL_FRAMES = 768  # frames a batch there (the file layer's encode and decode batch)
+EXAMPLES = ("torch_01_file_conversion", "torch_02_streaming_capture", "torch_03_batch_and_mesh",
+            "torch_04_multihost_pipeline")
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "tests" / "data" / "golden.npz"
 ROUTES = {  # phase 6: route -> (pack_mode, environment); "K2" is the reference
     "K2": ("block", {"X3_FUSED_ENCODE": "1"}),
     "block_pallas": ("block_pallas", {}),
@@ -1536,15 +1555,164 @@ def phase_mesh(params, kernels: dict, slices, batch: dict, td: Path, smi: str) -
     log(f"# phase 9 launches: {launches}; {time.perf_counter() - t0:.1f} s")
 
 
+def tool_module(*argv: str) -> list[str]:
+    """The command that runs a tool of the port as `python -m`."""
+    return [sys.executable, "-m", f"x3_tpu_torch.tools.{argv[0]}", *argv[1:]]
+
+
+def run_examples() -> None:
+    """Phase 10: each torch example once on the card, in this process."""
+    import contextlib
+    import importlib.util
+    import io
+
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            mod.main(device=DEV)
+        last = out.getvalue().strip().splitlines()[-1]
+        log(f"# phase 10 example {name}: {last}; {time.perf_counter() - t0:.3f} s")
+
+
+def corpus_on_card() -> None:
+    """Phase 10: roundtrip_corpus --synthetic on the card, each archive
+    equal to the port's CPU encode of the same WAV."""
+    from x3_tpu_torch.files import wav_to_x3a
+    from x3_tpu_torch.tools import roundtrip_corpus
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="x3_corpus_") as td:
+        paths = roundtrip_corpus.synthetic_corpus(Path(td))
+        res = roundtrip_corpus.run(paths, [DEV], log=lambda m: log(f"# phase 10 corpus {m}"))
+        require(res["failures"] == 0, f"roundtrip_corpus on the card: {res['failures']} failures")
+        for p in paths:
+            cpu = Path(td) / f"{p.stem}.cpu_encode.x3a"
+            wav_to_x3a(p, cpu, device="cpu")
+            require(list(res["archives"][p.name].values()) == [cpu.read_bytes()],
+                    f"{p.name}: the card's archive differs from the CPU encode's")
+    log(f"# phase 10 corpus: {len(paths)} synthetic WAVs exact through wav_to_x3a/x3a_to_wav on the card, "
+        f"archives equal the CPU encode's; {time.perf_counter() - t0:.1f} s")
+
+
+def tool_geometry_times(errs: Errs, reps: int = 20) -> None:
+    """Phase 10: K2 and K3 at the fuzz's edge geometries, TOOL_FRAMES
+    frames of mixed signal each: K2 equal to its plain version, the decode
+    equal to the input, walked with the parameters an archive's XML gives
+    (the default blocks_per_frame: at 1,500 blocks a frame K3's n_blocks
+    override), and each kernel's device ms a launch (torch.profiler)
+    beside its bound."""
+    import torch
+
+    from x3_tpu_torch import Parameters
+    from x3_tpu_torch.models.decoder import decode_geometry
+    from x3_tpu_torch.ops import decode_cuda, encode_cuda
+    from x3_tpu_torch.ops.encode_kernel import frame_geometry
+
+    rng = np.random.default_rng(20261020)
+    for L, B in TOOL_GEOMETRIES:
+        params = Parameters(block_len=L, blocks_per_frame=B)
+        S, _, _, W = frame_geometry(params)
+        frames = mixed_signal(rng, TOOL_FRAMES * S).reshape(TOOL_FRAMES, S)
+        st = torch.from_numpy(frames).to(DEV)
+        nv = torch.full((TOOL_FRAMES,), S, dtype=torch.int32, device=DEV)
+        enc = encode_cuda.encode_words_cuda(st, nv, params, W)
+        errs.check("encode", enc, encode_cuda.plain(st, nv, params, W), f"phase 10 K2 at L={L} B={B}")
+        words, nbytes = enc[0], enc[3]
+        recon = Parameters(block_len=L)
+        n_blocks = decode_geometry(recon, [S], [0])[0]
+        dec = decode_cuda.decode_words_cuda(words, nv, nbytes, recon, n_blocks)
+        require(not bool(dec[1].any()) and torch.equal(dec[0][:, :S], st),
+                f"phase 10 K3 at L={L} B={B}: the decode differs from the input")
+        ms_enc, _, _ = profiled_ms(lambda: encode_cuda.encode_words_cuda(st, nv, params, W), reps,
+                                   f"phase 10 K2 L={L} B={B}")
+        ms_dec, _, _ = profiled_ms(lambda: decode_cuda.decode_words_cuda(words, nv, nbytes, recon, n_blocks),
+                                   reps, f"phase 10 K3 L={L} B={B}")
+        b_enc = bound_ms(nbytes_of(st, nv, *enc))
+        b_dec = bound_ms(int(nbytes.sum()) + nbytes_of(nv, nbytes, *dec))
+        log(f"# phase 10 kernels at L={L} B={B}: K2 {ms_enc:.4f} ms a launch ([{TOOL_FRAMES}, {S}], W={W}; "
+            f"bound {b_enc:.4f} ms), K3 {ms_dec:.4f} ms ({TOOL_FRAMES} frames, "
+            f"{recon.blocks_per_frame if n_blocks is None else n_blocks} blocks walked; bound {b_dec:.4f} ms)")
+
+
+def phase_tools(kernels: dict, errs: Errs) -> None:
+    """Phase 10: the host tools and the examples on the card.  The
+    differential fuzz runs as its own process beside the rest; the sweep
+    builds in a process of its own; the corpus and the examples run here,
+    and K1-K3 must have been launched by them."""
+    import torch
+
+    for mod in kernels.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    fuzz = subprocess.Popen(tool_module("fuzz_differential", "--trials", str(FUZZ_TRIALS), "--seed",
+                                        str(FUZZ_SEED), "--devices", "cuda,cpu"),
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        sweep = subprocess.run(tool_module("compile_sweep"), cwd=ROOT, capture_output=True, text=True,
+                               timeout=900)
+        rows = [line for line in sweep.stdout.splitlines() if line.startswith(("ok", "FAIL"))]
+        for line in rows:
+            if not line.startswith("ok   encode") and not line.startswith("ok   decode"):
+                log(f"# phase 10 sweep {line}")
+        require(sweep.returncode == 0, f"compile_sweep exited {sweep.returncode}: {sweep.stderr[-3000:]}")
+        log(f"# phase 10 sweep: every (kernel, rung) launched and agreed, {len(rows)} rows ok; "
+            f"{time.perf_counter() - t0:.1f} s")
+        corpus_on_card()
+        run_examples()
+        torch.cuda.synchronize()
+        launches = {k: mod.launch_count for k, mod in kernels.items()}
+        tool_geometry_times(errs)
+        out, _ = fuzz.communicate(timeout=900)
+    finally:
+        if fuzz.poll() is None:
+            fuzz.kill()
+            fuzz.wait()
+    for line in out.splitlines():
+        if line.strip():
+            log(f"# phase 10 fuzz {line}")
+    require(fuzz.returncode == 0, f"fuzz_differential exited {fuzz.returncode}")
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched by phase 10")
+    log(f"# phase 10 launches: {launches}; {time.perf_counter() - t0:.1f} s")
+
+
+def profiled_ms(fn, reps: int, what: str) -> tuple[float, int, str]:
+    """(device ms a launch, launches recorded, kernel name) of fn(), which
+    launches one kernel, over `reps` calls under torch.profiler: the
+    wrapper's host pace does not enter."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    # CUPTI may drop a launch's record, or a whole session's (seen on the
+    # card): the mean is over the launches recorded, and a session that
+    # recorded none is run again, up to three times.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total
+                and not e.key.startswith("Activity Buffer")]
+        if rows:
+            break
+    calls = sum(e.count for e in rows)
+    require(0 < calls <= reps and len(rows) == 1,
+            f"{what}: {calls} device rows for {reps} launches ({[e.key for e in rows]})")
+    return rows[0].self_device_time_total / 1e3 / calls, calls, rows[0].key
+
+
 def profile_route_kernels(params, reps: int = 20) -> None:
     """--profile: K4, K5 and K6 alone on phase 6's batch of each class at
     its fitting rungs, `reps` launches under torch.profiler: each kernel's
     device ms a launch (the wrappers' host pace does not enter), beside
     the bound phase 6 computes from the same tensors."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from x3_tpu_torch.ops import front_cuda, pack_cuda, pack_walk_cuda
     from x3_tpu_torch.ops.encode_kernel import GR, frame_geometry
 
@@ -1564,27 +1732,9 @@ def profile_route_kernels(params, reps: int = 20) -> None:
         for k, (fn, ins) in runs.items():
             out = fn()
             bound = bound_ms(nbytes_of(*ins, *(out if isinstance(out, tuple) else [out])))
-            torch.cuda.synchronize()
-            # CUPTI may drop a launch's record, or a whole session's (seen on
-            # the card): the mean is over the launches recorded, and a
-            # session that recorded none is run again, up to three times.
-            for _ in range(3):
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    for _ in range(reps):
-                        fn()
-                    torch.cuda.synchronize()
-                rows = [e for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA and e.self_device_time_total
-                        and not e.key.startswith("Activity Buffer")]
-                if rows:
-                    break
-            calls = sum(e.count for e in rows)
-            require(0 < calls <= reps and len(rows) == 1,
-                    f"profile {name} {k}: {calls} device rows for {reps} launches ({[e.key for e in rows]})")
-            ms = rows[0].self_device_time_total / 1e3 / calls
+            ms, calls, key = profiled_ms(fn, reps, f"profile {name} {k}")
             log(f"# profile {name} {k}: device {ms:.4f} ms a launch over {calls} of {reps} launches "
-                f"(nb4={nb4}, W={b['w_fit']}), bound {bound:.4f} ms ({bound / ms:.0%} of it); "
-                f"{rows[0].key[:60]}")
+                f"(nb4={nb4}, W={b['w_fit']}), bound {bound:.4f} ms ({bound / ms:.0%} of it); {key[:60]}")
 
 
 def phase_profile(params, top: int = 12) -> None:
@@ -1712,6 +1862,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="x3_smoke_") as tmp:
         batch = phase_batch(params, kernels, "; ".join(smi), rates7, Path(tmp))
         phase_mesh(params, kernels, slices, batch, Path(tmp), "; ".join(smi))
+
+    # Phase 10: the host tools and the examples; its own launch counts.
+    phase_tools(kernels, errs)
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": launches[k], "max_abs_err": errs.max.get(k, 0),

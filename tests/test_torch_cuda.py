@@ -488,3 +488,29 @@ def test_fuzz_soak_on_cuda(cuda):
     summary = fuzz_soak.soak(16, 7, device=cuda)
     assert summary["failures"] == 0 and summary["error_lanes"] > 0 and summary["launches"] >= 16
     assert fuzz_soak.verdict(summary, cuda, "fuzz soak") == 0
+
+
+def test_fuzz_differential_on_cuda(cuda):
+    """Nine trials, one a geometry (block_len 1 to 60, blocks_per_frame 5
+    to 1,500, the n_blocks override of the reconstructed-params decode):
+    the card's encode and decodes equal the CPU's plain versions and the
+    input, and K2 and K3 were launched."""
+    from x3_tpu_torch.tools import fuzz_differential
+
+    lines = []
+    summary = fuzz_differential.run_campaign(9, 7, ["cuda", "cpu"], log=lines.append)
+    assert summary["failures"] == 0, lines
+    assert summary["checked"] == 9 and min(summary["launches"]) > 0
+
+
+def test_compile_sweep_on_cuda(cuda):
+    """The cold build and every (kernel, rung) launch, in a process of its
+    own (a process loads each kernel's library once)."""
+    import subprocess
+    import sys
+
+    repo = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-m", "x3_tpu_torch.tools.compile_sweep"], cwd=repo,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "all configurations build and launch cold" in out.stdout

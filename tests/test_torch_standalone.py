@@ -198,7 +198,9 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
             "x3_tpu_torch.utils.wav", "x3_tpu_torch.utils.xmlmeta", "x3_tpu_torch.multifile",
             "x3_tpu_torch.multichannel", "x3_tpu_torch.parallel.multihost", "x3_tpu_torch.parallel.mesh", "x3_tpu_torch.models.sharding",
             "x3_tpu_torch.entry", "x3_tpu_torch.utils.profiling", "x3_tpu_torch.tools.decode_parity",
-            "x3_tpu_torch.tools.fuzz_soak"} <= set(mods)
+            "x3_tpu_torch.tools.fuzz_soak", "x3_tpu_torch.utils.extbin",
+            "x3_tpu_torch.tools.fuzz_differential", "x3_tpu_torch.tools.roundtrip_corpus",
+            "x3_tpu_torch.tools.bench_files", "x3_tpu_torch.tools.compile_sweep"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "import x3_tpu_torch\n"
@@ -222,6 +224,83 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("clean")
+
+
+def _extbin_case(tmp_path, monkeypatch, case: str) -> None:
+    """The environment and PATH of one detection case of tests/test_extbin.py."""
+    for var in ("X3_REFERENCE_BIN", "FLAC_BIN"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("PATH", "/nonexistent")
+    fakes = tmp_path / "bin"
+    fakes.mkdir()
+    for name in ("x3", "flac"):
+        fake = fakes / name
+        fake.write_text("#!/bin/sh\nexit 0\n")
+        fake.chmod(0o755)
+    (fakes / "plain").write_text("not executable")
+    if case == "env":
+        monkeypatch.setenv("X3_REFERENCE_BIN", str(fakes / "x3"))
+        monkeypatch.setenv("FLAC_BIN", str(fakes / "flac"))
+    elif case == "path":
+        monkeypatch.setenv("PATH", str(fakes))
+    elif case == "env-beats-path":
+        other = tmp_path / "other"
+        other.mkdir()
+        for name in ("x3", "flac"):
+            (other / name).write_text("#!/bin/sh\nexit 1\n")
+            (other / name).chmod(0o755)
+        monkeypatch.setenv("PATH", str(other))
+        monkeypatch.setenv("X3_REFERENCE_BIN", str(fakes / "x3"))
+        monkeypatch.setenv("FLAC_BIN", str(fakes / "flac"))
+    elif case == "env-missing":
+        monkeypatch.setenv("X3_REFERENCE_BIN", str(tmp_path / "missing"))
+        monkeypatch.setenv("FLAC_BIN", str(tmp_path / "missing"))
+    elif case == "env-not-executable":
+        monkeypatch.setenv("X3_REFERENCE_BIN", str(fakes / "plain"))
+        monkeypatch.setenv("FLAC_BIN", str(fakes / "plain"))
+
+
+@pytest.mark.parametrize("case", ["absent", "env", "path", "env-beats-path", "env-missing", "env-not-executable"])
+def test_extbin_copy_detects_like_the_original(tmp_path, monkeypatch, case):
+    from x3_tpu.utils import extbin as ref
+
+    from x3_tpu_torch.utils import extbin as port
+
+    _extbin_case(tmp_path, monkeypatch, case)
+    got = (port.find_reference_x3(), port.find_flac())
+    assert got == (ref.find_reference_x3(), ref.find_flac())
+    assert (got[0] is None) == (case in ("absent", "env-missing", "env-not-executable"))
+
+
+def test_extbin_ref_convert_copy(tmp_path):
+    """ref_convert passes --input/--output to the binary and raises on a
+    non-zero exit, as the original."""
+    from x3_tpu.utils import extbin as ref
+
+    from x3_tpu_torch.utils import extbin as port
+
+    tool = tmp_path / "x3"
+    tool.write_text('#!/bin/sh\n[ "$1" = --input ] && [ "$3" = --output ] || exit 3\ncp "$2" "$4"\n')
+    tool.chmod(0o755)
+    (tmp_path / "a.wav").write_bytes(b"abc")
+    for mod, out in ((ref, "ref.x3a"), (port, "port.x3a")):
+        mod.ref_convert(str(tool), tmp_path / "a.wav", tmp_path / out)
+        assert (tmp_path / out).read_bytes() == b"abc"
+        with pytest.raises(subprocess.CalledProcessError):
+            mod.ref_convert(str(tool), tmp_path / "missing.wav", tmp_path / out)
+
+
+def test_resolve_engine_takes_decode_and_ignores_x3_engine(monkeypatch):
+    """x3_tpu's signature (engine, decode=None); one engine whatever the
+    direction; no other name; X3_ENGINE is not read."""
+    monkeypatch.delenv("X3_ENGINE", raising=False)
+    assert xt.resolve_engine("auto", decode=True) == xt.resolve_engine("torch", decode=False) == "torch"
+    assert xt.resolve_engine() == xt.resolve_engine("auto", None) == "torch"
+    for name in ("jax", "native", "numpy", "cuda"):
+        with pytest.raises(ValueError, match="unknown engine"):
+            xt.resolve_engine(name, decode=True)
+    monkeypatch.setenv("X3_ENGINE", "numpy")
+    assert xt.resolve_engine("auto", decode=True) == xt.resolve_engine("auto") == "torch"
 
 
 def _walk_file(mod, path, start, resync):

@@ -21,7 +21,9 @@ for NVIDIA Hopper (csrc/*.cu, built with nvcc on first use):
 * `parallel.mesh` — frame-sharded encode and decode over a mesh of
   devices (the batch APIs' `mesh=`), `entry` — the flagship step and the
   multi-device dry run, `utils.profiling` — trace, annotate and warm-up
-  hooks, and `tools` — the decode parity check and the fuzz soak.
+  hooks, and `tools` — the decode parity check, the fuzz soak and
+  x3_tpu's host tools (differential fuzz, corpus roundtrip, per-file
+  bench, cold-build sweep) across devices.
 
 device="cuda" runs the kernels (and raises when there is no GPU);
 device="cpu" runs their plain PyTorch versions.  The package shares no

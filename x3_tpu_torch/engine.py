@@ -3,7 +3,9 @@
 The port has one engine, "torch": the batched PyTorch pipeline on a
 `device` (the CUDA kernels on "cuda", their plain versions on "cpu").
 "auto" names it too.  With one engine there is nothing to probe or route,
-so there is no probe, probe cache or environment override.
+so there is no probe and no probe cache, and the port does not read
+X3_ENGINE: the values x3_tpu takes there ("jax", "native", "numpy") name
+engines the port does not have.
 """
 
 from __future__ import annotations
@@ -20,9 +22,11 @@ ENGINES = ("torch",)
 DECODE_BATCH_FRAMES = 768
 
 
-def resolve_engine(engine: str = "auto") -> str:
+def resolve_engine(engine: str = "auto", decode: bool | None = None) -> str:
     """The engine `engine` names: "auto" and "torch" give "torch"; any
-    other name raises ValueError."""
+    other name raises ValueError.  decode (the conversion direction, which
+    x3_tpu's routing weighs) is accepted and ignored: there is one engine
+    either way."""
     if engine in ("auto", *ENGINES):
         return "torch"
     raise ValueError(f"unknown engine {engine!r} (want auto|{'|'.join(ENGINES)})")

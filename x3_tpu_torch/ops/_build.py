@@ -83,12 +83,19 @@ def build(name: str) -> Path:
     return out
 
 
-def build_all() -> float:
+def build_all(times: dict | None = None) -> float:
     """Build every kernel, one nvcc per source, all started together;
-    returns the wall seconds it took."""
+    returns the wall seconds it took, and puts each kernel's own wall
+    seconds (its nvcc, or the check for its library) into `times`."""
+    def timed(name):
+        t = time.perf_counter()
+        build(name)
+        if times is not None:
+            times[name] = time.perf_counter() - t
+
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        list(pool.map(build, KERNELS))  # re-raises the first failed build
+        list(pool.map(timed, KERNELS))  # re-raises the first failed build
     return time.perf_counter() - t0
 
 
