@@ -17,7 +17,9 @@ Phases (any failure raises and the exit code is non-zero):
    truncated lengths, random lanes that walk past the buffer); then a K1
    sweep over junk rows of 1, 5, 131, 2,048 and 4,096 words, one frame and
    141 frames: every length residue mod 128, lengths 0-3, the full row,
-   negative lengths and lengths past the row; then a K2 edge batch of 141
+   negative lengths and lengths past the row, and crc16_padded (K1 over
+   zero-padded byte rows) of 1, 3, 4, 5, 131 and 8,190 bytes against its
+   CPU route; then a K2 edge batch of 141
    frames of 287 samples with the n_valid edges 0, 1, 2, L, L+1, S-1 and
    S, at 1 and 8 words and the fitting, full and compact rungs; then a
    K5/K6 edge batch (pack_edges): K5 on 384,001 lanes of every item kind
@@ -97,7 +99,13 @@ Phases (any failure raises and the exit code is non-zero):
    and K3 at block_len 1, 60 and 1,500 blocks a frame (TOOL_GEOMETRIES),
    K2 against its plain version, the decode equal to the input, with
    their device times; K1-K3 must have been launched by the corpus and
-   the examples, and every tool must exit 0.
+   the examples, and every tool must exit 0;
+11. the port's bench (x3_tpu_torch.bench.run, what `python3 bench_torch.py`
+   prints) at its defaults: per class the device encode and decode MB/s,
+   the file MB/s each way and the exactness keys; every bit_exact,
+   decode_exact and e2e_exact must be true, decode_parity_ok true (K3
+   against its plain version on a mutated batch), the platform "cuda",
+   and K1-K3 must have been launched by it.
 
 The line before the last is a JSON object describing each kernel (with
 its least time on the card from the bytes it must move, at 3.35 TB/s);
@@ -119,7 +127,7 @@ from pathlib import Path
 
 import numpy as np
 
-from bench import make_class_corpus  # numpy only; absent outside the repository
+from x3_tpu_torch.bench import make_class_corpus  # absent outside the repository
 
 N_FRAMES_CHECK = 768  # frames per kernel-vs-plain batch (the encoder's batch)
 N_FRAMES_SLICE = 6144  # frames per class in the full-size slice
@@ -146,6 +154,7 @@ FUZZ_TRIALS = 18  # phase 10: fuzz_differential trials, two a geometry
 FUZZ_SEED = 11
 TOOL_GEOMETRIES = ((1, 16), (60, 5), (10, 1500))  # phase 10: (block_len, blocks_per_frame) K2 and K3 are timed at
 TOOL_FRAMES = 768  # frames a batch there (the file layer's encode and decode batch)
+PADDED_BYTES = (1, 3, 4, 5, 131, 8190)  # phase 3: row widths of crc16_padded
 EXAMPLES = ("torch_01_file_conversion", "torch_02_streaming_capture", "torch_03_batch_and_mesh",
             "torch_04_multihost_pipeline")
 ROOT = Path(__file__).resolve().parent
@@ -546,6 +555,7 @@ def crc_sweep(errs: Errs, rng) -> None:
     import torch
 
     from x3_tpu_torch.ops import crc_cuda
+    from x3_tpu_torch.ops.crc_torch import crc16_padded
 
     t0 = time.perf_counter()
     for W in (1, 5, 131, 2048, 4096):
@@ -556,8 +566,17 @@ def crc_sweep(errs: Errs, rng) -> None:
             w, n = words[:F].contiguous(), lengths[:F].contiguous()
             errs.check("crc16", [crc_cuda.crc16_words_cuda(w, n, W)], [crc_cuda.plain(w, n, W)],
                        f"crc sweep W={W} F={F}")
+    for n_bytes in PADDED_BYTES:
+        lens = rng.integers(0, n_bytes + 1, 141).astype(np.int32)
+        lens[:4] = 0, 1, n_bytes, n_bytes - 1 + n_bytes % 2  # empty, one byte, full, odd
+        rows = rng.integers(0, 256, (len(lens), n_bytes), dtype=np.uint8)
+        rows[np.arange(n_bytes)[None, :] >= lens[:, None]] = 0
+        rows_t, lens_t = torch.from_numpy(rows), torch.from_numpy(lens)
+        errs.check("crc16", [crc16_padded(rows_t.to(DEV), lens_t.to(DEV), n_bytes).cpu()],
+                   [crc16_padded(rows_t, lens_t, n_bytes)], f"crc16_padded n_bytes={n_bytes}")
     log(f"# phase 3 crc sweep: K1 exact on junk rows of 1, 5, 131, 2048 and 4096 words, "
         f"F=141 and F=1, every length residue mod 128, 0-3, negative and past the row; "
+        f"crc16_padded exact at {', '.join(map(str, PADDED_BYTES))} bytes; "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1680,6 +1699,25 @@ def phase_tools(kernels: dict, errs: Errs) -> None:
     log(f"# phase 10 launches: {launches}; {time.perf_counter() - t0:.1f} s")
 
 
+def phase_bench(kernels: dict) -> None:
+    """Phase 11: the port's bench at its defaults, in this process; its
+    exactness keys must hold and K1-K3 must have been launched by it."""
+    from x3_tpu_torch import bench
+
+    for mod in kernels.values():
+        mod.launch_count = 0
+    t0 = time.perf_counter()
+    result = bench.run(DEV)
+    launches = {k: mod.launch_count for k, mod in kernels.items()}
+    log(f"# phase 11 bench: {json.dumps(result)}")
+    log(f"# phase 11 launches: {launches}; {time.perf_counter() - t0:.1f} s")
+    require(result["platform"] == "cuda", f"the bench ran on {result['platform']}")
+    for key in ("bit_exact", "decode_exact", "e2e_exact", "decode_parity_ok"):
+        require(result[key] is True, f"the bench's {key} is {result[key]}")
+    for k, n in launches.items():
+        require(n > 0, f"kernel {k} was not launched by the bench")
+
+
 def profiled_ms(fn, reps: int, what: str) -> tuple[float, int, str]:
     """(device ms a launch, launches recorded, kernel name) of fn(), which
     launches one kernel, over `reps` calls under torch.profiler: the
@@ -1865,6 +1903,9 @@ def main() -> int:
 
     # Phase 10: the host tools and the examples; its own launch counts.
     phase_tools(kernels, errs)
+
+    # Phase 11: the port's bench; its own launch counts.
+    phase_bench(kernels)
     report = {"kernels": [
         {"name": k, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
          "launches": launches[k], "max_abs_err": errs.max.get(k, 0),

@@ -166,3 +166,26 @@ def test_crc_rejects_width_mismatch():
 
     with pytest.raises(ValueError):
         crc16_words(torch.zeros((2, 4), dtype=torch.int32), torch.zeros(2, dtype=torch.int32), 5)
+
+
+@pytest.mark.parametrize("length", ["zero", "one", "odd", "full"])
+@pytest.mark.parametrize("n_bytes", [1, 3, 4, 5, 131])
+def test_crc16_padded_matches_jax(n_bytes, length):
+    """crc16_padded against crc16_padded_jax and crc16_many on the same
+    zero-padded byte rows."""
+    import jax.numpy as jnp
+
+    from x3_tpu.ops.crc_jax import crc16_padded_jax
+
+    from x3_tpu_torch.ops.crc_torch import crc16_padded
+
+    n = {"zero": 0, "one": 1, "odd": n_bytes - 1 + n_bytes % 2, "full": n_bytes}[length]
+    rng = np.random.default_rng(100 * n_bytes + n)
+    rows = rng.integers(0, 256, (5, n_bytes), dtype=np.uint8)
+    lengths = np.full(5, n, np.int32)
+    rows[:, n:] = 0
+    got = crc16_padded(torch.from_numpy(rows), torch.from_numpy(lengths), n_bytes)
+    assert got.dtype == torch.int32
+    want = np.asarray(crc16_padded_jax(jnp.asarray(rows), jnp.asarray(lengths), n_bytes))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), crc16_many(rows, lengths))

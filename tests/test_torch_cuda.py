@@ -514,3 +514,33 @@ def test_compile_sweep_on_cuda(cuda):
                          capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "all configurations build and launch cold" in out.stdout
+
+
+def test_bench_on_cuda(cuda):
+    """The port's bench on the card at a small geometry: every exactness key
+    true, decode_parity_ok true (K3 against its plain version), the card's
+    name and power limit, and K1-K3 launched."""
+    from x3_tpu_torch import bench
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda, encode_cuda
+
+    for mod in (crc_cuda, decode_cuda, encode_cuda):
+        mod.launch_count = 0
+    res = bench.run(cuda, GEOMETRIES[0], batch_frames=16, decode_batch=32, reps=2, e2e_reps=1, passes=1)
+    assert bench.all_exact(res) and res["decode_parity_ok"] is True
+    assert res["platform"] == "cuda" and res["device"]["power_limit_w"] > 0
+    assert res["device"]["name"] and res["cuda"]
+    assert min(mod.launch_count for mod in (crc_cuda, decode_cuda, encode_cuda)) > 0
+
+
+@pytest.mark.parametrize("n_bytes", [1, 3, 4, 5, 131, 8190])
+def test_crc16_padded_on_cuda(cuda, n_bytes):
+    from x3_tpu_torch.ops.crc_torch import crc16_padded
+
+    rng = np.random.default_rng(n_bytes)
+    lens = rng.integers(0, n_bytes + 1, 37).astype(np.int32)
+    lens[:3] = 0, 1, n_bytes
+    rows = rng.integers(0, 256, (37, n_bytes), dtype=np.uint8)
+    rows[np.arange(n_bytes)[None, :] >= lens[:, None]] = 0
+    rows_t, lens_t = torch.from_numpy(rows), torch.from_numpy(lens)
+    got = crc16_padded(rows_t.to(cuda), lens_t.to(cuda), n_bytes)
+    assert got.is_cuda and torch.equal(got.cpu(), crc16_padded(rows_t, lens_t, n_bytes))

@@ -183,7 +183,8 @@ def test_golden_frame_encodes_byte_for_byte(golden):
 
 def test_port_and_bench_import_no_jax_and_no_x3_tpu():
     """A fresh interpreter imports x3_tpu_torch, every module of it (the
-    CUDA wrappers import without a card) and bench; then no key of
+    CUDA wrappers import without a card) and the port's bench script
+    bench_torch; then no key of
     sys.modules is jax or x3_tpu or below them.  JAX_PLATFORMS is set, and
     must not matter."""
     mods = sorted(
@@ -200,13 +201,14 @@ def test_port_and_bench_import_no_jax_and_no_x3_tpu():
             "x3_tpu_torch.entry", "x3_tpu_torch.utils.profiling", "x3_tpu_torch.tools.decode_parity",
             "x3_tpu_torch.tools.fuzz_soak", "x3_tpu_torch.utils.extbin",
             "x3_tpu_torch.tools.fuzz_differential", "x3_tpu_torch.tools.roundtrip_corpus",
-            "x3_tpu_torch.tools.bench_files", "x3_tpu_torch.tools.compile_sweep"} <= set(mods)
+            "x3_tpu_torch.tools.bench_files", "x3_tpu_torch.tools.compile_sweep",
+            "x3_tpu_torch.bench"} <= set(mods)
     code = (
         "import importlib, sys\n"
         "import x3_tpu_torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "import bench\n"
+        "import bench_torch\n"
         "import contextlib, io\n"
         "from x3_tpu_torch.cli import main\n"
         "try:\n"

@@ -23,7 +23,9 @@ for NVIDIA Hopper (csrc/*.cu, built with nvcc on first use):
   multi-device dry run, `utils.profiling` — trace, annotate and warm-up
   hooks, and `tools` — the decode parity check, the fuzz soak and
   x3_tpu's host tools (differential fuzz, corpus roundtrip, per-file
-  bench, cold-build sweep) across devices.
+  bench, cold-build sweep) across devices;
+* `bench` — x3_tpu's bench.py on the port (`python3 bench_torch.py`): device
+  and file MB/s and exactness of the three corpus classes as one JSON line.
 
 device="cuda" runs the kernels (and raises when there is no GPU);
 device="cpu" runs their plain PyTorch versions.  The package shares no

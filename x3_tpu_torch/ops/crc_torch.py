@@ -6,7 +6,8 @@ words.  A CUDA tensor goes to the CRC kernel (ops/crc_cuda.py), which folds
 128-byte stripes a warp per frame with GF(2) tables; a CPU tensor to the
 plain version below, which keeps the JAX package's GF(2) formulation: the
 data part is bits(words) @ M over GF(2), and the trailing zero padding is
-undone by S^-z (crc_jax._crc16_finish)."""
+undone by S^-z (crc_jax._crc16_finish).  `crc16_padded` is the contract
+of crc16_padded_jax over zero-padded byte rows, through `crc16_words`."""
 
 from __future__ import annotations
 
@@ -27,6 +28,24 @@ def crc16_words(words: torch.Tensor, lengths: torch.Tensor, n_words: int) -> tor
 
         return crc16_words_cuda(words, lengths, n_words)
     return crc16_words_plain(words, lengths, n_words)
+
+
+def crc16_padded(byte_rows: torch.Tensor, lengths: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    """CRC16 of the leading `lengths[f]` bytes of each row of a zero-padded
+    uint8 [F, n_bytes] tensor (x3_tpu.ops.crc_jax.crc16_padded_jax).
+
+    The rows are packed into big-endian int32 words on their own device,
+    n_bytes padded with zeros up to a whole word, and handed to
+    `crc16_words` (the CRC kernel on a CUDA tensor, the plain version on a
+    CPU one).  lengths: int [F] in 0..n_bytes.  Returns int32 [F] holding
+    uint16 values."""
+    from .decode_kernel import payload_words
+
+    F = byte_rows.shape[0]
+    n_words = -(-n_bytes // 4)
+    rows = torch.zeros((F, 4 * n_words), dtype=torch.uint8, device=byte_rows.device)
+    rows[:, :n_bytes] = byte_rows
+    return crc16_words(payload_words(rows), lengths.to(torch.int32), n_words)
 
 
 def _mask_past_length(w: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
