@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the repository root; needs a GPU and nvcc
     python3 chip_smoke.py --profile  # phases 1-2, then where the time goes: K4-K6
-                                     # alone, then the slice
+                                     # alone, then the slice (wall ms, device
+                                     # rows, the device idle share, host rows)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -31,6 +32,14 @@ Phases (any failure raises and the exit code is non-zero):
    first four frames must equal the port's own CPU encode of the same
    samples, the reference's golden frame (tests/data/golden.npz) must
    encode byte for byte, and K1-K3 must have been launched by this phase;
+   then, after its launches are counted, the pipeline against a serial
+   reference: every class's frames and a stream that escalates in its
+   third batch through the one-batch-ahead encode, byte for byte equal to
+   a loop of blocking read-backs, host byteswap and _assemble
+   (serial_encode), and decode_frames_batch and decode_frames_flat on
+   each class's payloads, clean and mutated, sample for sample equal to a
+   blocking decode_frames_checked (serial_decode), err and crc_ok
+   included;
 5. at the main path's shapes (one 768-frame encoder batch at the class's
    rung; the whole 8,192-lane decode batch with its pad lanes), each kernel
    against its plain version, exact, and the device time of both (CUDA
@@ -131,6 +140,7 @@ from x3_tpu_torch.bench import make_class_corpus  # absent outside the repositor
 
 N_FRAMES_CHECK = 768  # frames per kernel-vs-plain batch (the encoder's batch)
 N_FRAMES_SLICE = 6144  # frames per class in the full-size slice
+ENCODE_BATCH = 768  # frames per encode batch (x3_tpu_torch.encode's default); phase 4's serial loop's too
 CLASSES = ("hydrophone", "music", "pi240")
 SAMPLE_RATE = 96000
 DEV = "cuda"
@@ -632,7 +642,7 @@ def phase_slice(params):
     for name in CLASSES:
         samples = make_class_corpus(name, N_FRAMES_SLICE, S)
         mb = samples.nbytes / 1e6
-        res, archive, (payloads, counts, _), (outs, err, crc_ok), (t_enc, t_walk, t_dec) = \
+        res, archive, (payloads, counts, crcs), (outs, err, crc_ok), (t_enc, t_walk, t_dec) = \
             slice_once(params, samples, header)
         require(len(outs) == N_FRAMES_SLICE, f"{name}: {len(outs)} frames")
         require(not err.any(), f"{name}: decode errors on {int((err != 0).sum())} frames")
@@ -645,13 +655,140 @@ def phase_slice(params):
             f"head equal to the CPU encode; ratio {ratio:.4f}; rungs W={res.width_used} "
             f"NW={res.block_width_used}; encode {mb / t_enc:.1f} MB/s ({t_enc:.3f} s), "
             f"decode {mb / t_dec:.1f} MB/s ({t_dec:.3f} s), frame walk {t_walk:.3f} s")
-        out[name] = dict(samples=samples, archive=archive, payloads=payloads, counts=counts,
+        out[name] = dict(samples=samples, archive=archive, payloads=payloads, counts=counts, crcs=crcs,
                          w=res.width_used, nw=res.block_width_used)
     golden = np.load(GOLDEN)
     got = xt.encode(golden["frame_wav"], xt.Parameters(), device=DEV).data
     require(got == golden["frame_expected"].tobytes(), "the golden frame differs from the reference's")
     log(f"# phase 4 golden: the reference's {len(got)}-byte frame encodes byte for byte")
     return out
+
+
+def serial_encode(samples: np.ndarray, params, batch_frames: int):
+    """Phase 4's reference encode, the port's loop before it ran one batch
+    ahead: each batch on the card at the stream's sticky rungs, its sizes
+    and words read back by blocking .cpu() calls, escalated and dispatched
+    again, byteswapped and assembled on the host (_assemble).  Returns
+    (frame stream, summed stats, (W, NW) rungs after each batch)."""
+    import torch
+
+    from x3_tpu_torch.models.encoder import _assemble, build_frame_headers
+    from x3_tpu_torch.ops.encode_kernel import (
+        block_width_rungs, encode_frames, fits_block_width, fits_width, width_rungs)
+
+    S = params.samples_per_frame
+    rungs, nw_rungs = width_rungs(params), block_width_rungs(params)
+    rung = nw_rung = 0
+    parts, stats, path = [], np.zeros(6, np.int64), []
+    for start in range(0, len(samples), batch_frames * S):
+        seg = samples[start : start + batch_frames * S]
+        f = -(-len(seg) // S)
+        batch = np.zeros((f, S), np.int16)
+        batch.reshape(-1)[: len(seg)] = seg
+        n_valid = np.full(f, S, np.int32)
+        n_valid[-1] = len(seg) - (f - 1) * S
+        st, nv = torch.from_numpy(batch).to(DEV), torch.from_numpy(n_valid).to(DEV)
+        res = encode_frames(st, nv, params, "block", rungs[rung], nw_rungs[nw_rung])
+        nbytes, blockfit = res["nbytes"].cpu().numpy(), res["blockfit_bits"].cpu().numpy()
+        while nw_rung < len(nw_rungs) - 1 and not fits_block_width(blockfit, nw_rungs[nw_rung], params):
+            nw_rung += 1
+        if not fits_width(nbytes, rungs[rung], params):
+            while rung < len(rungs) - 1 and not fits_width(nbytes, rungs[rung], params):
+                rung += 1
+            res = encode_frames(st, nv, params, "block", rungs[rung], nw_rungs[nw_rung])
+            nbytes = res["nbytes"].cpu().numpy()
+        payload = res["payload_words"].cpu().numpy().view(np.uint32).byteswap().view(np.uint8).reshape(f, -1)
+        headers = build_frame_headers(n_valid, 1, nbytes, res["crc"].cpu().numpy())
+        parts.append(_assemble(headers, payload, nbytes))
+        stats += res["stats"].cpu().numpy().sum(axis=0, dtype=np.int64)
+        path.append((rungs[rung], nw_rungs[nw_rung]))
+    return b"".join(parts), stats, path
+
+
+def serial_decode(payloads, counts, crcs, params):
+    """Phase 4's reference decode: decode_frames_checked over payload_batch's
+    zero-padded buffer, read back by blocking .cpu() calls.  Returns (per-
+    frame samples, err, crc_ok)."""
+    import torch
+
+    from x3_tpu_torch.ops.decode_kernel import decode_frames_checked
+
+    buf, ns, plens, n_blocks = decode_batch_tensors(payloads, counts, params)
+    out, err, crc = (t.cpu().numpy() for t in decode_frames_checked(buf, ns, plens, params, n_blocks))
+    f = len(payloads)
+    return ([out[i, : counts[i]] for i in range(f)], err[:f],
+            crc[:f] == np.asarray(crcs, dtype=np.int64))
+
+
+def same_decode(got, want, flat, what: str) -> None:
+    """The per-frame decode `got`, and `flat` (decode_frames_flat), equal
+    the reference `want` sample for sample, err and crc_ok included."""
+    require(len(got[0]) == len(want[0]), f"{what}: {len(got[0])} frames, want {len(want[0])}")
+    for i, (g, w) in enumerate(zip(got[0], want[0])):
+        require(np.array_equal(g, w), f"{what}: frame {i} differs from the serial decode")
+    require(np.array_equal(flat[0], np.concatenate(want[0])), f"{what}: decode_frames_flat differs")
+    for k, name in ((1, "err"), (2, "crc_ok")):
+        require(np.array_equal(got[k], want[k]) and np.array_equal(flat[k], want[k]),
+                f"{what}: {name} differs from the serial decode")
+
+
+def mixed_stream(params) -> np.ndarray:
+    """Phase 4's escalating stream of ENCODE_BATCH-frame batches: two of
+    pi240 (the 512-word rung), then hydrophone (2,048), music (4,096) and
+    pi240 again, and a partial frame."""
+    S = params.samples_per_frame
+    parts = [make_class_corpus(name, ENCODE_BATCH, S, seed=40 + i)
+             for i, name in enumerate(("pi240", "pi240", "hydrophone", "music", "pi240"))]
+    return np.concatenate(parts + [make_class_corpus("music", 1, S, seed=46)[:1234]])
+
+
+def phase_pipeline(params, slices, rng) -> None:
+    """Phase 4, after the main path's launches are counted: the one-batch-
+    ahead encode against serial_encode byte for byte (every class and an
+    escalating stream), and decode_frames_batch and decode_frames_flat
+    against serial_decode on each class's payloads, clean and mutated."""
+    import torch
+
+    import x3_tpu_torch as xt
+    from x3_tpu_torch.models.decoder import decode_frames_flat
+    from x3_tpu_torch.ops._bits import u32
+    from x3_tpu_torch.ops.decode_kernel import payload_words
+
+    t0 = time.perf_counter()
+    S = params.samples_per_frame
+    streams = {name: slices[name]["samples"] for name in CLASSES}
+    streams["mixed"] = mixed_stream(params)
+    for name, samples in streams.items():
+        res = xt.encode(samples, params, ENCODE_BATCH, device=DEV)
+        data, stats, path = serial_encode(samples, params, ENCODE_BATCH)
+        require(res.data == data, f"{name}: the pipelined encode differs from the serial one")
+        require(np.array_equal(res.stats, stats), f"{name}: stats differ from the serial encode")
+        require((res.width_used, res.block_width_used) == path[-1],
+                f"{name}: rungs {(res.width_used, res.block_width_used)}, serial {path[-1]}")
+        if name == "mixed":
+            require(path[1] == path[0] != path[2] != path[3],
+                    f"the mixed stream does not escalate in its third batch: {path}")
+    for name in CLASSES:
+        d = slices[name]
+        payloads, counts, crcs = d["payloads"], d["counts"], d["crcs"]
+        want = serial_decode(payloads, counts, crcs, params)
+        same_decode(xt.decode_frames_batch(payloads, counts, params, check_crcs=crcs, device=DEV), want,
+                    decode_frames_flat(payloads, counts, params, check_crcs=crcs, device=DEV), f"{name} clean")
+        buf, ns, plens, _ = decode_batch_tensors(payloads, counts, params)
+        mw, mplens, mn = mutate(payload_words(buf), plens, ns, S, rng)
+        f = len(payloads)
+        by = u32(mw[:f]).cpu().numpy().astype(">u4").view(np.uint8).reshape(f, -1)
+        mplens, mn = mplens[:f].cpu().numpy(), mn[:f].cpu().numpy().tolist()
+        mpay = [by[i, : mplens[i]].tobytes() for i in range(f)]
+        want = serial_decode(mpay, mn, crcs, params)
+        require(want[1].any() and not want[2].all(), f"{name}: the mutated batch has no error lanes")
+        same_decode(xt.decode_frames_batch(mpay, mn, params, check_crcs=crcs, device=DEV), want,
+                    decode_frames_flat(mpay, mn, params, check_crcs=crcs, device=DEV), f"{name} mutated")
+        torch.cuda.synchronize()
+    log(f"# phase 4 pipeline: encode equal to the serial loop byte for byte for {', '.join(streams)} "
+        f"(mixed: rungs {' -> '.join(f'{w}/{nw}' for w, nw in path)}); decode_frames_batch and "
+        f"decode_frames_flat equal to a blocking decode_frames_checked, clean and mutated, every class; "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_timing(params, slices, errs: Errs) -> dict:
@@ -1778,7 +1915,9 @@ def profile_route_kernels(params, reps: int = 20) -> None:
 def phase_profile(params, top: int = 12) -> None:
     """--profile: where the slice's time goes, per class at full size.  For
     a warm encode and a warm checked decode: wall ms, then torch.profiler's
-    device ops and cProfile's host functions, each by self time."""
+    device ops (their sum against the profiled call's wall gives the
+    device's idle share) and cProfile's host functions, each by self
+    time."""
     import cProfile
     import os
     import pstats
@@ -1803,8 +1942,10 @@ def phase_profile(params, top: int = 12) -> None:
                                                            check_crcs=crcs, device=DEV)))
         for label, fn in steps:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
             # Device-side rows only (kernels and copies): a CPU op's row
             # repeats its kernels' time, and CUPTI's buffer requests are
             # the profiler's own.
@@ -1813,7 +1954,8 @@ def phase_profile(params, top: int = 12) -> None:
                          and not e.key.startswith("Activity Buffer")),
                         key=lambda e: e.self_device_time_total, reverse=True)
             dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
-            log(f"# profile {name} {label}: device {dev_ms:.3f} ms (kernels and copies)")
+            log(f"# profile {name} {label}: device {dev_ms:.3f} ms (kernels and copies) in a profiled "
+                f"wall of {wall_ms:.3f} ms: device idle share {1 - dev_ms / wall_ms:.1%}")
             for e in ka[:top]:
                 log(f"#   device {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, "
                     f"{e.count} calls")
@@ -1881,6 +2023,7 @@ def main() -> int:
     log(f"# phase 4 launches: {launches}")
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was not launched by the main path")
+    phase_pipeline(params, slices, np.random.default_rng(20261020))
 
     # Phase 5: kernels against their plain versions at the main path's
     # shapes, and their device times.

@@ -544,3 +544,117 @@ def test_crc16_padded_on_cuda(cuda, n_bytes):
     rows_t, lens_t = torch.from_numpy(rows), torch.from_numpy(lens)
     got = crc16_padded(rows_t.to(cuda), lens_t.to(cuda), n_bytes)
     assert got.is_cuda and torch.equal(got.cpu(), crc16_padded(rows_t, lens_t, n_bytes))
+
+
+def _noise_frames(amps, spf: int, seed: int, tail: int = 0) -> np.ndarray:
+    """Frames of uniform noise of the given amplitudes, the last cut short."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([rng.integers(-a, a, spf).astype(np.int16) for a in amps])
+    return x[: len(x) - tail]
+
+
+# Three width rungs (512, 1024, 1128) and four block-width rungs: noise of
+# amplitude 16 fits W=512, 256 needs 1024 and full scale the worst case.
+ESC = Parameters(block_len=20, blocks_per_frame=110)
+ESC_AMPS = [16, 16, 16, 256, 16, 32767, 256, 16, 16, 16, 16]
+
+
+def test_pipelined_encode_on_cuda_matches_cpu(cuda):
+    """The one-batch-ahead encode and worklist on the card, across
+    escalations (batch i + 1 in flight at the old rungs), give the CPU's
+    bytes, stats and rungs; the checked decode of them, per frame and
+    compacted, gives the input back."""
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import multifile
+    from x3_tpu_torch.models.decoder import decode_frames_flat
+
+    wav = _noise_frames(ESC_AMPS, ESC.samples_per_frame, 5, tail=333)
+    for batch in (1, 2, 3):
+        got = xt.encode(wav, ESC, batch_frames=batch, device=cuda)
+        want = xt.encode(wav, ESC, batch_frames=batch, device="cpu")
+        assert got.data == want.data and np.array_equal(got.stats, want.stats)
+        assert (got.width_used, got.block_width_used) == (want.width_used, want.block_width_used)
+    streams = [wav[:5000], wav[5000:9000], np.zeros(0, np.int16), wav[9000:]]
+    got = multifile.encode_streams(streams, ESC, 2, device=cuda)
+    want = multifile.encode_streams(streams, ESC, 2, device="cpu")
+    assert [(r.data, r.stats.tolist()) for r in got] == [(r.data, r.stats.tolist()) for r in want]
+    res = xt.encode(wav, ESC, batch_frames=3, device=cuda)
+    payloads, counts, crcs, off = [], [], [], 0
+    while off < len(res.data):
+        h = res.data[off : off + 20]
+        plen = int.from_bytes(h[6:8], "big")
+        counts.append(int.from_bytes(h[4:6], "big"))
+        crcs.append(int.from_bytes(h[18:20], "big"))
+        payloads.append(res.data[off + 20 : off + 20 + plen])
+        off += 20 + plen
+    outs, err, ok = xt.decode_frames_batch(payloads, counts, ESC, check_crcs=crcs, device=cuda)
+    flat, err2, ok2 = decode_frames_flat(payloads, counts, ESC, check_crcs=crcs, device=cuda)
+    assert not err.any() and ok.all() and np.array_equal(err, err2) and np.array_equal(ok, ok2)
+    np.testing.assert_array_equal(np.concatenate(outs), wav)
+    np.testing.assert_array_equal(flat, wav)
+
+
+def test_submit_and_upload_never_block(cuda):
+    """submit (staging copy, K2 + K1, the read-back of the sizes) and the
+    decode's upload, walk and compaction enqueue without one host-device
+    synchronisation: under set_sync_debug_mode("error") a blocking copy or
+    read raises."""
+    from x3_tpu_torch.models import decoder, encoder
+    from x3_tpu_torch.models.sharding import Mesh
+    from x3_tpu_torch.models.staging import StagingPool
+
+    params = Parameters()
+    S = params.samples_per_frame
+    wav = _mixed(np.random.default_rng(9), 16 * S)
+    want = encoder.encode(wav, params, batch_frames=16, device="cpu")  # CPU reference
+    encoder.encode(wav, params, batch_frames=16, device=cuda)  # builds and tables first
+    buf = StagingPool(1, 16, S, cuda).acquire()
+    buf.samples.numpy()[:] = wav.reshape(16, S)
+    buf.n_valid.numpy()[:] = S
+    payloads, counts = [], []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sub = encoder.submit(buf.samples, buf.n_valid, params, 2, 1, Mesh([cuda]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    done = encoder.finish(sub, 2, 1)
+    assert done.frames.tobytes() == want.data
+    off = 0
+    for i in range(16):
+        n = int(done.nbytes[i])
+        payloads.append(want.data[off + 20 : off + 20 + n])
+        counts.append(S)
+        off += 20 + n
+    decoder.decode_frames_flat(payloads, counts, params, device=cuda)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, err, crc, ns = decoder._walk(payloads, counts, params, True, Mesh([cuda]))
+        flat = decoder.compact_frames(out, ns[:16], 16 * S)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    np.testing.assert_array_equal(flat.cpu().numpy(), wav)
+
+
+def test_staging_reuse_stress(cuda):
+    """Eight full-size batches through two staging buffers (encode) and
+    three (the worklist): the host refills a buffer as soon as the encode
+    loop gives it back, so a refill before its copy had run would corrupt the
+    batch before; every batch's frames must equal the CPU's."""
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import multifile
+
+    params = Parameters()
+    S = params.samples_per_frame
+    rng = np.random.default_rng(17)
+    # Each batch of 32 frames its own signal, so a batch that read another's
+    # staging would show.
+    wav = np.concatenate([_mixed(rng, 32 * S) // (1 + b) for b in range(8)]).astype(np.int16)
+    got = xt.encode(wav, params, batch_frames=32, device=cuda)
+    want = xt.encode(wav, params, batch_frames=32, device="cpu")
+    assert got.data == want.data and np.array_equal(got.stats, want.stats)
+    streams = [wav[: 100 * S + 7], wav[100 * S + 7 :]]
+    got = multifile.encode_streams(streams, params, 32, device=cuda)
+    assert b"".join(r.data for r in got) == b"".join(
+        r.data for r in multifile.encode_streams(streams, params, 32, device="cpu"))

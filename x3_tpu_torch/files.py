@@ -3,7 +3,7 @@ x3a_info, verify_x3a and the random-access X3aReader.
 
 Every conversion runs the port's batched pipeline on `device`: encode
 through `encode` (kernels K2 and K1 on "cuda"), decode through
-`decode_frames_batch(..., check_crcs=...)` (K3 and K1), with the plain
+`decode_frames_flat(..., check_crcs=...)` (K3 and K1), with the plain
 PyTorch versions on "cpu".  Memory is bounded in both directions: encode
 reads the WAV a batch at a time; decode walks the frame headers with
 seeks, reads the payloads a batch at a time and appends to the WAV.
@@ -24,7 +24,7 @@ from . import archive, constants
 from .device import resolve_device
 from .engine import resolve_batch_frames, resolve_engine
 from .errors import FrameHeaderInvalidPayloadCRC, X3Error, decode_error
-from .models.decoder import decode_frames_batch
+from .models.decoder import decode_frames_batch, decode_frames_flat
 from .models.encoder import EncodeResult
 from .params import Parameters, X3aSpec
 from .streaming import StreamEncoder, check_mono16
@@ -74,18 +74,20 @@ def wav_to_x3a(
 def _decode_payload_batch(payloads, headers, params: Parameters, resync: bool, device, base: int = 0):
     """Decode one batch of payloads with their CRCs checked on `device`.
 
-    Returns (outs list, errs int array of per-frame decode codes).  Without
-    resync a payload-CRC mismatch raises, naming the frame (`base` is the
-    batch's first frame); with resync it marks the frame with code 4."""
+    Returns (samples: the frames' samples back to back, bounds int64 [F + 1]
+    (frame i is samples[bounds[i]:bounds[i + 1]]), errs int array of
+    per-frame decode codes).  Without resync a payload-CRC mismatch raises,
+    naming the frame (`base` is the batch's first frame); with resync it
+    marks the frame with code 4."""
     ns = [h.samples for h in headers]
     want_crcs = [h.payload_crc for h in headers]
-    outs, errs, crc_ok = decode_frames_batch(payloads, ns, params, check_crcs=want_crcs, device=device)
+    samples, errs, crc_ok = decode_frames_flat(payloads, ns, params, check_crcs=want_crcs, device=device)
     if not crc_ok.all():
         if not resync:
             bad = int(np.nonzero(~crc_ok)[0][0])
             raise FrameHeaderInvalidPayloadCRC(f"frame {base + bad} payload CRC mismatch")
         errs = np.where(~crc_ok, 4, errs)
-    return outs, errs
+    return samples, np.concatenate([[0], np.cumsum(ns, dtype=np.int64)]), errs
 
 
 def _read_payloads(f, batch):
@@ -138,20 +140,20 @@ def x3a_to_wav(
         with WavWriter(wav_filename, spec.sample_rate) as wout:
             base = 0
             for batch in _batches(archive.walk_frames_file(f, header_size, resync=resync), batch_frames):
-                outs, errs = _decode_payload_batch(
+                samples, bounds, errs = _decode_payload_batch(
                     _read_payloads(f, batch), [h for _, h in batch], spec.params, resync, device, base
                 )
                 if not np.any(errs):
-                    wout.write(np.concatenate(outs) if len(outs) > 1 else outs[0])
+                    wout.write(samples)
                 else:
-                    for i, (out, err) in enumerate(zip(outs, errs)):
+                    for i, err in enumerate(errs):
                         if err:
                             frame_errors += 1
                             print(f"Frame error: frame {base + i} failed to decode")
                             if not resync:
                                 return frame_errors  # the reference stops at the first bad frame
                             continue
-                        wout.write(out)
+                        wout.write(samples[bounds[i] : bounds[i + 1]])
                 base += len(batch)
     return frame_errors
 
@@ -235,7 +237,7 @@ def verify_x3a(
                     if verbose:
                         print(f"skipped {hstart - expect} bytes at {expect} (sync rescue)")
                 expect = off + h.payload_len
-            _, errs = _decode_payload_batch(
+            _, _, errs = _decode_payload_batch(
                 _read_payloads(f, batch), [h for _, h in batch], spec.params, True, device
             )
             for i, ((_, h), err) in enumerate(zip(batch, errs)):
@@ -305,13 +307,13 @@ class X3aReader:
     def _decode_batch(self, base: int):
         batch = self._index[base : base + self._batch_frames]
         # A payload-CRC mismatch raises; a decode error becomes a None entry.
-        outs, errs = _decode_payload_batch(
+        samples, bounds, errs = _decode_payload_batch(
             _read_payloads(self._f, batch), [h for _, h in batch], self._spec.params, False,
             self._device, base,
         )
         self._cache = {}  # only the current batch stays resident
-        for i, (out, err) in enumerate(zip(outs, errs)):
-            self._cache[base + i] = None if err else out
+        for i, err in enumerate(errs):
+            self._cache[base + i] = None if err else samples[bounds[i] : bounds[i + 1]]
 
     def decode_next_frame(self) -> np.ndarray | None:
         """The next frame's samples, or None at the end and after the first

@@ -63,6 +63,13 @@ def _gather(parts: list, mesh: Mesh) -> torch.Tensor:
     return torch.cat([p.to(mesh.devices[0]) for p in parts])
 
 
+def _to(a: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """`a` on `dev`; a copy from pinned host memory to a card does not
+    block the host (a pageable one would, until the stream's queued work
+    has run)."""
+    return a.to(dev, non_blocking=dev.type == "cuda" and not a.is_cuda and a.is_pinned())
+
+
 def shard_map(fn, mesh: Mesh, *arrays):
     """fn(*shard) on each mesh entry's device, the arrays (tensors or numpy,
     [F, ...] each) split into mesh.size contiguous shards on axis 0; F must
@@ -76,7 +83,7 @@ def shard_map(fn, mesh: Mesh, *arrays):
     if f % mesh.size:
         raise ValueError(f"{f} frames do not split evenly over a mesh of {mesh.size}")
     k = f // mesh.size
-    parts = [fn(*(a[i * k : (i + 1) * k].to(dev) for a in arrays)) for i, dev in enumerate(mesh.devices)]
+    parts = [fn(*(_to(a[i * k : (i + 1) * k], dev) for a in arrays)) for i, dev in enumerate(mesh.devices)]
     if isinstance(parts[0], dict):
         return {key: _gather([p[key] for p in parts], mesh) for key in parts[0]}
     if isinstance(parts[0], tuple):

@@ -2,9 +2,11 @@
 
 Frames are the parallel unit, so frames from different files share device
 batches: 256 WAVs encode as one sequence of [F, S] device calls however
-the samples are split across files.  Encode runs models.encoder.
-encode_batch (K2 + K1 on "cuda", with the encoder's sticky rung
-escalation); decode runs K3, with the payload CRCs checked by K1.
+the samples are split across files.  Encode runs models.encoder's submit
+and finish one batch ahead (K2 + K1 on "cuda", with the encoder's sticky
+rung escalation, frames assembled on the device); decode runs K3, with
+the payload CRCs checked by K1, and reads the samples back compacted
+(decode_frames_flat).
 device="cpu" runs their plain PyTorch versions.
 
 The batch defaults are the port's engine.ENCODE_BATCH_FRAMES and
@@ -19,14 +21,14 @@ from __future__ import annotations
 import wave
 
 import numpy as np
-import torch
 
 from . import archive
 from .engine import resolve_batch_frames
 from .errors import FrameHeaderInvalidPayloadCRC, decode_error
-from .models.decoder import decode_frames_batch, payload_batch
-from .models.encoder import EncodeResult, _assemble, build_frame_headers, encode_batch
+from .models.decoder import decode_frames_flat, payload_batch
+from .models.encoder import EncodeResult, finish, submit
 from .models.sharding import check_mesh, shard_map
+from .models.staging import StagingPool
 from .ops.crc_torch import crc16_words
 from .ops.decode_kernel import payload_words
 from .params import Parameters
@@ -99,41 +101,71 @@ def encode_streams(
 
 def _run_encode_worklist(work, read, emit, params: Parameters, batch_frames, source_id: int, mesh):
     """Drive the batched encode over a frame worklist of (key, start, n)
-    entries, batch after batch at the sticky rungs of encode_batch.  Each
-    batch is padded with dummy frames to a multiple of the mesh's size and
-    sharded over it, all shards at one rung.
+    entries, one batch ahead at the sticky rungs of models.encoder: batch
+    i + 1 is submitted before batch i is finished.  Each batch is padded
+    with dummy frames to a multiple of the mesh's size and sharded over it,
+    all shards at one rung.
 
     read(key, start, n): the n samples of `key` from `start`, for each run
-      of a key's consecutive frames in a batch; the batches are filled on a
-      read-ahead thread while the previous one encodes
-      (utils.io.prefetch_iter, depth 1: one extra batch buffer).
-    emit(key, frames, stats): a run's headers and payloads as bytes, and
-      their summed int64 stats [6]."""
+      of a key's consecutive frames in a batch; a read-ahead thread
+      (utils.io.prefetch_iter, depth 1) fills the batches straight into a
+      pool of three staging buffers (pinned for a card): one being filled,
+      one submitted, one being finished.  It fills host memory only: every
+      launch is made from the calling thread.
+    emit(key, frames, stats): a run's headers and payloads (a uint8 array),
+      and their summed int64 stats [6]."""
     batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=False), mesh)
     spf = params.samples_per_frame
     rung = nw_rung = 0
+    pool = StagingPool(3, min(batch_frames, _round_to_mesh(len(work), mesh)), spf, mesh.devices[0])
 
     def _filled():
         for base in range(0, len(work), batch_frames):
             chunk = work[base : base + batch_frames]
-            batch = np.zeros((_round_to_mesh(len(chunk), mesh), spf), dtype=np.int16)
-            n_valid = np.zeros(len(batch), dtype=np.int32)  # dummy frames past the chunk
-            n_valid[: len(chunk)] = [n for _, _, n in chunk]
-            for key, a, b in _runs(chunk):
+            m = _round_to_mesh(len(chunk), mesh)
+            buf = pool.acquire()
+            batch, n_valid = buf.samples[:m], buf.n_valid[:m]
+            b, nv = batch.numpy(), n_valid.numpy()
+            nv[: len(chunk)] = [n for _, _, n in chunk]
+            nv[len(chunk) :] = 0  # dummy frames past the chunk
+            b[len(chunk) :] = 0
+            for key, a, c in _runs(chunk):
                 # A run's frames are consecutive rows: one read fills them,
                 # only its last frame may be partial.
-                n = int(n_valid[a:b].sum())
-                batch[a:b].reshape(-1)[:n] = read(key, chunk[a][1], n)
-            yield chunk, batch, n_valid
+                rows = b[a:c].reshape(-1)
+                n = int(nv[a:c].sum())
+                rows[:n] = read(key, chunk[a][1], n)
+                rows[n:] = 0
+            yield chunk, buf, batch, n_valid
 
-    for chunk, batch, n_valid in prefetch_iter(_filled(), depth=1):
-        payload, nbytes, crc, bstats, rung, nw_rung = encode_batch(
-            torch.from_numpy(batch), torch.from_numpy(n_valid), params, rung, nw_rung, mesh)
-        m = len(chunk)
-        headers = build_frame_headers(n_valid[:m], source_id, nbytes[:m], crc[:m])
-        for key, a, b in _runs(chunk):
-            emit(key, _assemble(headers[a:b], payload[a:b], nbytes[a:b]),
-                 bstats[a:b].sum(axis=0, dtype=np.int64))
+    def _finish(chunk, buf, sub):
+        try:
+            done = finish(sub, rung, nw_rung, source_id)
+        finally:
+            pool.release(buf)
+        for key, a, c in _runs(chunk):
+            emit(key, done.frames[done.offsets[a] : done.offsets[c]],
+                 done.stats[a:c].sum(axis=0, dtype=np.int64))
+        return done.rung, done.nw_rung
+
+    filled = prefetch_iter(_filled(), depth=1)
+    pending = None
+    try:
+        for chunk, buf, batch, n_valid in filled:
+            try:
+                sub = submit(batch, n_valid, params, rung, nw_rung, mesh)
+            except BaseException:
+                pool.release(buf)
+                raise
+            prev, pending = pending, (chunk, buf, sub)
+            if prev is not None:
+                rung, nw_rung = _finish(*prev)
+        if pending is not None:
+            prev, pending = pending, None
+            rung, nw_rung = _finish(*prev)
+    finally:
+        pool.close()  # wakes a read-ahead thread waiting for a buffer
+        filled.close()
 
 
 def _payload_crcs_ok(payloads, want_crcs, params: Parameters, mesh) -> np.ndarray:
@@ -184,18 +216,20 @@ def decode_streams(
         for fi, ((_, h), payload) in enumerate(zip(index, payloads)):
             work.append((ai, fi, payload, h.samples))
 
-    outs: list[list[np.ndarray]] = [[] for _ in archives]  # each archive's frames, in order
+    outs: list[list[np.ndarray]] = [[] for _ in archives]  # each archive's runs of frames, in order
     for params, work in groups.items():
         for base in range(0, len(work), batch_frames):
             chunk = work[base : base + batch_frames]
-            dec, err = decode_frames_batch([p for _, _, p, _ in chunk], [n for _, _, _, n in chunk], params,
-                                           device=mesh.device_type, mesh=mesh)
+            counts = [n for _, _, _, n in chunk]
+            dec, err = decode_frames_flat([p for _, _, p, _ in chunk], counts, params,
+                                          device=mesh.device_type, mesh=mesh)
             if err.any():
                 bad = int(np.nonzero(err)[0][0])
                 ai, fi = chunk[bad][0], chunk[bad][1]
                 raise decode_error(err[bad], f"archive {ai} frame {fi} failed to decode")
-            for (ai, _, _, _), d in zip(chunk, dec):
-                outs[ai].append(d)
+            bounds = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
+            for ai, a, b in _runs(chunk):
+                outs[ai].append(dec[bounds[a] : bounds[b]])
 
     return [(np.concatenate(parts) if parts else np.zeros(0, np.int16), spec.sample_rate)
             for parts, spec in zip(outs, specs)]
@@ -338,8 +372,9 @@ def x3a_to_wav_batch(
         try:
             for params, chunk, payloads in prepared:
                 heads = [h for _, _, _, h in chunk]
-                dec, err, crc_ok = decode_frames_batch(
-                    payloads, [h.samples for h in heads], params,
+                counts = [h.samples for h in heads]
+                dec, err, crc_ok = decode_frames_flat(
+                    payloads, counts, params,
                     check_crcs=[h.payload_crc for h in heads], device=mesh.device_type, mesh=mesh,
                 )
                 if not crc_ok.all():
@@ -349,8 +384,9 @@ def x3a_to_wav_batch(
                     bad = int(np.nonzero(err)[0][0])
                     ai, fi = chunk[bad][:2]
                     raise decode_error(err[bad], f"archive {ai} frame {fi} failed to decode")
+                bounds = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
                 for ai, a, b in _runs(chunk):
-                    writer_for(ai).write(np.concatenate(dec[a:b]))  # one write a run
+                    writer_for(ai).write(dec[bounds[a] : bounds[b]])  # one write a run
                     done[ai] += b - a
                     if done[ai] == len(indexes[ai]):
                         writers.pop(ai).close()

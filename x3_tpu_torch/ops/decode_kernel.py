@@ -67,6 +67,27 @@ def payload_words(payload: torch.Tensor) -> torch.Tensor:
     return as_i32(w)
 
 
+def packed_payload_words(data: torch.Tensor, offsets: torch.Tensor, lengths: torch.Tensor,
+                         w_words: int) -> torch.Tensor:
+    """int32 [F, w_words] big-endian word bit patterns of F payloads packed
+    back to back in uint8 `data` (payload f is data[offsets[f] : offsets[f]
+    + lengths[f]]), zero past each length: payload_words of the zero-padded
+    [F, 4 * w_words] rows, built without them.  The big-endian word that
+    starts at every byte of `data` is formed once (int32 shifts of 4-byte
+    windows), then one gather takes each row's words and a mask cuts the
+    bytes past its length.  offsets, lengths: int [F], lengths in
+    0..4 * w_words."""
+    dev = data.device
+    d = torch.nn.functional.pad(data.to(torch.int32), (0, 4))  # the last windows read zeros
+    win = d.unfold(0, 4, 1)  # [len + 1, 4]: the 4 bytes from each position
+    be = (win[:, 0] << 24) | (win[:, 1] << 16) | (win[:, 2] << 8) | win[:, 3]
+    j4 = 4 * torch.arange(w_words, device=dev, dtype=torch.int32)
+    idx = (offsets.to(torch.int64)[:, None] + j4).clamp(max=be.shape[0] - 1)
+    keep = (lengths.to(torch.int32)[:, None] - j4).clamp(0, 4)  # payload bytes in each word
+    mask = torch.where(keep > 0, -1 << (32 - 8 * keep), 0)
+    return be[idx] & mask
+
+
 def decode_words(words: torch.Tensor, n_samples: torch.Tensor, payload_lens: torch.Tensor,
                  params: Parameters, n_blocks: int | None = None):
     """Walk int32 [F, W] payload words: (samples int16 [F, S], err int32
@@ -98,9 +119,15 @@ def decode_frames_checked(payload: torch.Tensor, n_samples: torch.Tensor,
                           n_blocks: int | None = None):
     """decode_frames plus the payload CRC16 of each frame over the words the
     decoder built: (samples, err, crc int32 [F])."""
+    return decode_words_checked(payload_words(payload), n_samples, payload_lens, params, n_blocks)
+
+
+def decode_words_checked(words: torch.Tensor, n_samples: torch.Tensor, payload_lens: torch.Tensor,
+                         params: Parameters, n_blocks: int | None = None):
+    """Walk int32 [F, W] payload words and CRC them: (samples int16 [F, S],
+    err int32 [F], crc int32 [F]) (K3 + K1 for CUDA tensors)."""
     from .crc_torch import crc16_words
 
-    words = payload_words(payload)
     out, err, _ = decode_words(words, n_samples, payload_lens, params, n_blocks)
     return out, err, crc16_words(words, payload_lens, words.shape[1])
 
