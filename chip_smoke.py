@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py            # from the repository root; needs a GPU and nvcc
     python3 chip_smoke.py --profile  # phases 1-2, then where the time goes: K4-K6
-                                     # alone, then the slice (wall ms, device
-                                     # rows, the device idle share, host rows)
+                                     # alone, then the slice and x3a_to_wav
+                                     # (wall ms, device rows, the device idle
+                                     # share, host rows, the file decode's waits)
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -56,17 +57,21 @@ Phases (any failure raises and the exit code is non-zero):
 7. the file layer (x3_tpu_torch.files) on the card, in a temporary
    directory (about 1.9 GB of disk): each class's 6,144-frame WAV (written
    by the port's WavWriter) through wav_to_x3a, whose archive must equal
-   phase 4's byte for byte, and back through x3a_to_wav, equal to the
-   input; verify_x3a and x3a_info against the walk; the MB/s of both
-   directions over three warm calls; x3a_to_wav at 768, 2,048 and 6,144
-   frames a batch; then a one-hour 96 kHz hydrophone recording (34,560
+   phase 4's byte for byte, and back through x3a_to_wav (the chunked
+   stream), equal to the input and byte for byte to the walker's WAV
+   (resync=True); verify_x3a and x3a_info against the walk; the MB/s of
+   both directions and of the walker over three warm calls; x3a_to_wav of
+   every class at 4, 8 and 16 MB chunks, a fresh process a size, with its
+   peak RSS growth; then a one-hour 96 kHz hydrophone recording (34,560
    frames and a partial one, 691 MB, made in 6,144-frame chunks) through
    both directions, each in a fresh process (`--rss-child`) whose peak
    RSS growth (the kernel's peak where it moves, else the largest RSS
    sampled every millisecond) must stay under half the WAV's size; its
    head equal to the port's CPU encode, X3aReader's random access, and
-   damage (a payload byte, a frame-header byte) giving the reference's
-   errors and counts; K1-K3 must have been launched by it;
+   damage giving the reference's errors and counts (a payload byte of
+   frame 1,000: FrameHeaderInvalidPayloadCRC naming frame 1000; a header
+   byte of frame 2,000: FrameHeaderInvalidHeaderCRC); K1-K3 must have
+   been launched by it;
 8. multi-file batching and multichannel .x3m (x3_tpu_torch.multifile,
    multichannel), in a temporary directory (about 2.4 GB of disk): 256
    mono 96 kHz WAVs of the three classes, of lengths uniform in 1-480,000
@@ -149,7 +154,7 @@ HOUR_FRAMES = 34560  # phase 7: one hour of 96 kHz mono in 10,000-sample frames
 HOUR_TAIL = 7777  # samples of the hour file's partial last frame
 CHUNK_FRAMES = 6144  # the hour file is made and written this many frames at a time
 CMP_SAMPLES = 4 << 20  # WAVs are compared this many samples at a time
-DECODE_SWEEP = (768, 2048, 6144)  # x3a_to_wav batch sizes timed in phase 7
+CHUNK_SWEEP = (4 << 20, 8 << 20, 16 << 20)  # x3a_to_wav read sizes timed in phase 7
 DAMAGED_FRAMES = (1000, 2000)  # phase 7: a payload byte, then a header byte, of these frames
 MF_FILES = 256  # phase 8: WAVs batch-converted at once (BASELINE.json config 4)
 MF_MAX_SAMPLES = 480_000  # their lengths are uniform in 1..this (5 s at 96 kHz)
@@ -1013,40 +1018,47 @@ class RssSampler:
 
 
 def rss_child(argv) -> int:
-    """--rss-child DIRECTION SRC DST BATCH RUNS WARM_SRC WARM_DST, in a
-    fresh process: one small conversion (WARM_SRC -> WARM_DST) loads the
-    kernels and sets up the allocators, then RUNS timed conversions of SRC
-    to DST (DIRECTION "encode": wav_to_x3a, "decode": x3a_to_wav, "x3m":
-    x3m_to_wav); prints the wall times, the RSS and the peak RSS before
-    them, the peak RSS after them and the largest RSS sampled during them,
-    as JSON."""
+    """--rss-child DIRECTION SRCS DSTS BATCH RUNS WARM_SRC WARM_DST CHUNK, in
+    a fresh process: one small conversion (WARM_SRC -> WARM_DST) loads the
+    kernels and sets up the allocators, then for each of the SRCS in turn
+    (paths joined by os.pathsep) RUNS timed conversions to the DSTS entry
+    beside it (DIRECTION "encode": wav_to_x3a, "decode": x3a_to_wav, "x3m":
+    x3m_to_wav), with x3a_to_wav's read size set to CHUNK bytes unless it
+    is "default"; prints the wall times, source by source, the RSS and the
+    peak RSS before them, the peak RSS after them and the largest RSS
+    sampled during them, as JSON."""
     from x3_tpu_torch import files, multichannel
 
-    direction, src, dst, batch, runs, warm_src, warm_dst = argv
+    direction, srcs, dsts, batch, runs, warm_src, warm_dst, chunk = argv
     fn, want = {"encode": (files.wav_to_x3a, None), "decode": (files.x3a_to_wav, 0),
                 "x3m": (multichannel.x3m_to_wav, X3M_CHANNELS)}[direction]
+    if chunk != "default":
+        files._CHUNK_BYTES = int(chunk)
     kw = dict(batch_frames=None if batch == "default" else int(batch), device=DEV)
     fn(warm_src, warm_dst, **kw)
     rss0, peak0 = rss_now(), rss_peak()
     times = []
     with RssSampler() as sampler:
-        for _ in range(int(runs)):
-            t, out = timed_call(lambda: fn(src, dst, **kw))
-            require(want is None or out == want, f"{direction} {src}: returned {out}, want {want}")
-            times.append(t)
+        for src, dst in zip(srcs.split(os.pathsep), dsts.split(os.pathsep)):
+            for _ in range(int(runs)):
+                t, out = timed_call(lambda: fn(src, dst, **kw))
+                require(want is None or out == want, f"{direction} {src}: returned {out}, want {want}")
+                times.append(t)
     print(json.dumps({"times": times, "rss0": rss0, "peak0": peak0, "peak": rss_peak(),
                       "sampled": sampler.peak}))
     return 0
 
 
-def rss_run(direction: str, src, dst, warm: tuple, batch="default", runs: int = 1) -> dict:
+def rss_run(direction: str, src, dst, warm: tuple, batch="default", runs: int = 1, chunk="default") -> dict:
     """rss_child in a fresh interpreter (a process's peak RSS cannot be
-    reset in place everywhere).  Adds "growth" in MB over the RSS before
-    the runs: from the kernel's peak RSS where the runs set a new peak for
-    the process ("how": "peak"), else from the largest RSS sampled every
-    millisecond during them ("how": "sampled")."""
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--rss-child", direction, str(src), str(dst),
-           str(batch), str(runs), str(warm[0]), str(warm[1])]
+    reset in place everywhere); src and dst are a path or a list of paths.
+    Adds "growth" in MB over the RSS before the runs: from the kernel's
+    peak RSS where the runs set a new peak for the process ("how":
+    "peak"), else from the largest RSS sampled every millisecond during
+    them ("how": "sampled")."""
+    paths = lambda p: os.pathsep.join(map(str, p if isinstance(p, (list, tuple)) else [p]))
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--rss-child", direction, paths(src), paths(dst),
+           str(batch), str(runs), str(warm[0]), str(warm[1]), str(chunk)]
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     require(out.returncode == 0, f"rss child {direction} {src}: exit {out.returncode}\n{out.stderr[-3000:]}")
     d = json.loads(out.stdout.strip().splitlines()[-1])
@@ -1123,43 +1135,67 @@ def check_archive(path, n_frames: int, n_samples: int, what: str) -> list:
     return index
 
 
-def phase_files_class(name: str, d: dict, td: Path, smi: str, warm: dict) -> tuple[dict, str]:
+def phase_files_class(name: str, d: dict, td: Path, smi: str) -> str:
     """Phase 7 for one class's 6,144-frame corpus: the archive equals phase
-    4's, the roundtrip is exact, verify and info agree with the walk, and
-    the MB/s of three warm calls each way (the check call is the warm
-    one).  For the first class also the decode batch-size sweep.  Returns
-    the sweep and the MB/s, as text."""
+    4's, the roundtrip is exact, x3a_to_wav's chunked stream gives the
+    walker's WAV (resync=True) byte for byte, verify and info agree with
+    the walk, and the MB/s of three warm calls of each (the check call is
+    the warm one).  Leaves the WAV and the archive in `td` for the chunk
+    sweep.  Returns the MB/s, as text."""
     from x3_tpu_torch import files
 
     samples = d["samples"]
     mb = samples.nbytes / 1e6
-    src, x3a, back = td / f"{name}.wav", td / f"{name}.x3a", td / f"{name}.back.wav"
+    src, x3a, back, walked = (td / f"{name}.wav", td / f"{name}.x3a", td / f"{name}.back.wav",
+                              td / f"{name}.walked.wav")
     write_class_wav(src, samples)
     files.wav_to_x3a(src, x3a, device=DEV)
     require(x3a.read_bytes() == d["archive"], f"{name}: wav_to_x3a differs from phase 4's archive")
     require(files.x3a_to_wav(x3a, back, device=DEV) == 0, f"{name}: x3a_to_wav reported frame errors")
     require(same_wav(back, src), f"{name}: x3a_to_wav differs from the input WAV")
+    require(files.x3a_to_wav(x3a, walked, resync=True, device=DEV) == 0, f"{name}: the walker reported errors")
+    require(same_file(back, walked), f"{name}: x3a_to_wav's stream and the walker's WAV differ")
     check_archive(x3a, len(d["counts"]), len(samples), name)
     enc = [timed_call(lambda: files.wav_to_x3a(src, x3a, device=DEV))[0] for _ in range(3)]
     dec = [timed_call(lambda: files.x3a_to_wav(x3a, back, device=DEV))[0] for _ in range(3)]
-    require(x3a.read_bytes() == d["archive"] and same_wav(back, src), f"{name}: timed calls differ")
+    walk = [timed_call(lambda: files.x3a_to_wav(x3a, walked, resync=True, device=DEV))[0] for _ in range(3)]
+    require(x3a.read_bytes() == d["archive"] and same_wav(back, src) and same_file(back, walked),
+            f"{name}: timed calls differ")
+    walked.unlink()
+    back.unlink()
     rates = (f"wav_to_x3a {mb / max(enc):.1f}-{mb / min(enc):.1f} MB/s, "
-             f"x3a_to_wav {mb / max(dec):.1f}-{mb / min(dec):.1f} MB/s")
+             f"x3a_to_wav {mb / max(dec):.1f}-{mb / min(dec):.1f} MB/s "
+             f"(the walker, resync=True: {mb / max(walk):.1f}-{mb / min(walk):.1f})")
     log(f"# phase 7 {name}: {len(d['counts'])} frames ({mb:.2f} MB int16) exact through wav_to_x3a "
-        f"(= phase 4's archive) and x3a_to_wav; verify_x3a ok; x3a_info = walk; {rates} "
-        f"(min-max of 3 warm calls); {smi}")
+        f"(= phase 4's archive) and x3a_to_wav (= the walker's WAV byte for byte); verify_x3a ok; "
+        f"x3a_info = walk; {rates} (min-max of 3 warm calls); {smi}")
+    return rates
+
+
+def chunk_sweep(slices, td: Path, smi: str, warm: dict) -> dict:
+    """x3a_to_wav at each read size of CHUNK_SWEEP, one fresh process a
+    size decoding every class's archive three times: each output equal to
+    its input, the wall times a class and the process's peak RSS growth.
+    Returns {chunk: (seconds a class, growth in MB)}."""
+    names = list(CLASSES)
+    srcs = [td / f"{n}.wav" for n in names]
+    x3as = [td / f"{n}.x3a" for n in names]
+    backs = [td / f"{n}.sweep.wav" for n in names]
     sweep = {}
-    if name == CLASSES[0]:
-        for bf in DECODE_SWEEP:
-            r = rss_run("decode", x3a, back, warm["decode"], bf, runs=3)
-            require(same_wav(back, src), f"{name}: x3a_to_wav batch_frames={bf} differs from the input")
-            sweep[bf] = (r["times"], r["growth"])
-            log(f"# phase 7 decode sweep {name} batch_frames={bf}: "
-                + ", ".join(f"{t:.3f} s ({mb / t:.1f} MB/s)" for t in r["times"])
-                + f", peak RSS growth {r['growth']:.1f} MB ({r['how']}; a fresh process, 3 calls); {smi}")
-    for p in (src, x3a, back):
+    for chunk in CHUNK_SWEEP:
+        r = rss_run("decode", x3as, backs, warm["decode"], runs=3, chunk=chunk)
+        for back, src in zip(backs, srcs):
+            require(same_wav(back, src), f"x3a_to_wav at {chunk}-byte chunks differs from {src.name}")
+        times = {n: r["times"][3 * i : 3 * i + 3] for i, n in enumerate(names)}
+        sweep[chunk] = (times, r["growth"])
+        log(f"# phase 7 chunk sweep {chunk >> 20} MB: "
+            + "; ".join(f"{n} " + ", ".join(f"{slices[n]['samples'].nbytes / 1e6 / t:.1f}" for t in ts)
+                        for n, ts in times.items())
+            + f" MB/s (3 calls each); peak RSS growth {r['growth']:.1f} MB ({r['how']}; a fresh process, "
+            f"all three classes); {smi}")
+    for p in (*srcs, *x3as, *backs):
         p.unlink()
-    return sweep, rates
+    return sweep
 
 
 def hour_rss_bound(params) -> float:
@@ -1194,7 +1230,7 @@ def phase_files_hour(params, td: Path, smi: str, warm: dict) -> tuple[float, flo
     import x3_tpu_torch as xt
     from x3_tpu_torch import files
     from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
-    from x3_tpu_torch.errors import FrameHeaderInvalidPayloadCRC
+    from x3_tpu_torch.errors import FrameHeaderInvalidHeaderCRC, FrameHeaderInvalidPayloadCRC
 
     S = params.samples_per_frame
     n_frames, n = HOUR_FRAMES + 1, HOUR_FRAMES * S + HOUR_TAIL
@@ -1251,13 +1287,18 @@ def phase_files_hour(params, td: Path, smi: str, warm: dict) -> tuple[float, flo
             f.seek(pos)
             f.write(bytes([byte ^ 0x10]))
 
+    def raised_by(cls, fn):
+        try:
+            fn()
+        except cls as e:
+            return e
+        return None
+
     flip(off)
-    try:
-        files.x3a_to_wav(bad, back, device=DEV)
-        raised = None
-    except FrameHeaderInvalidPayloadCRC as e:
-        raised = e
+    raised = raised_by(FrameHeaderInvalidPayloadCRC, lambda: files.x3a_to_wav(bad, back, device=DEV))
     require(raised is not None, "hour: a flipped payload byte did not raise FrameHeaderInvalidPayloadCRC")
+    require(str(raised) == f"frame {fp} payload CRC mismatch",
+            f"hour: the payload CRC error of frame {fp} reads {str(raised)!r}")
     require(files.x3a_to_wav(bad, back, resync=True, device=DEV) == 1, "hour: resync did not count 1 error")
     require(wav_length(back) == n - S and same_samples(back, 0, src, 0, fp * S)
             and same_samples(back, fp * S, src, (fp + 1) * S, n - (fp + 1) * S),
@@ -1268,25 +1309,27 @@ def phase_files_hour(params, td: Path, smi: str, warm: dict) -> tuple[float, flo
             f"hour: verify_x3a on a flipped payload byte reports {rep}")
     flip(off)
     flip(index[fh][0] - 20 + 5)
+    raised2 = raised_by(FrameHeaderInvalidHeaderCRC, lambda: files.x3a_to_wav(bad, back, device=DEV))
+    require(raised2 is not None, "hour: a flipped header byte did not raise FrameHeaderInvalidHeaderCRC")
     rep2 = files.verify_x3a(bad, device=DEV)
     require(rep2["skipped_bytes"] > 0 and rep2["ok"] is False, f"hour: verify_x3a on a flipped header byte {rep2}")
     bad.unlink()
-    log(f"# phase 7 hour damage: a payload byte of frame {fp} raises {type(raised).__name__}, resync "
-        f"counts 1 error and drops that frame alone, verify_x3a {rep['frame_errors']} frame error; a "
-        f"header byte of frame {fh}: verify_x3a skips {rep2['skipped_bytes']} bytes")
+    back.unlink(missing_ok=True)
+    log(f"# phase 7 hour damage: a payload byte of frame {fp} raises {type(raised).__name__}: {raised}; "
+        f"resync counts 1 error and drops that frame alone, verify_x3a {rep['frame_errors']} frame error; a "
+        f"header byte of frame {fh}: x3a_to_wav raises {type(raised2).__name__}, verify_x3a skips "
+        f"{rep2['skipped_bytes']} bytes")
     return g_enc, g_dec
 
 
 def phase_files(params, slices, kernels: dict, smi: str) -> dict:
     """Phase 7: the file layer on the card.  Returns each class's
     single-file MB/s, as text."""
-    from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
+    from x3_tpu_torch import files
 
     for mod in kernels.values():
         mod.launch_count = 0
     t0 = time.perf_counter()
-    from x3_tpu_torch import files
-
     with tempfile.TemporaryDirectory(prefix="x3_smoke_") as tmp:
         td = Path(tmp)
         # Two frames for the measuring processes' first, warming conversion.
@@ -1294,19 +1337,23 @@ def phase_files(params, slices, kernels: dict, smi: str) -> dict:
         write_class_wav(warm_wav, slices[CLASSES[0]]["samples"][: 2 * params.samples_per_frame])
         files.wav_to_x3a(warm_wav, warm_x3a, device=DEV)
         warm = {"encode": (warm_wav, td / "warm.out.x3a"), "decode": (warm_x3a, td / "warm.out.wav")}
-        sweep, rates = {}, {}
-        for name in CLASSES:
-            class_sweep, rates[name] = phase_files_class(name, slices[name], td, smi, warm)
-            sweep.update(class_sweep)
+        rates = {name: phase_files_class(name, slices[name], td, smi) for name in CLASSES}
+        sweep = chunk_sweep(slices, td, smi, warm)
         phase_files_hour(params, td, smi, warm)
     launches = {k: mod.launch_count for k, mod in kernels.items()}
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was not launched by the file layer")
     bound = hour_rss_bound(params)
-    fits = {bf: min(times) for bf, (times, growth) in sweep.items() if growth < bound}
-    best = min(fits, key=fits.get) if fits else None
-    log(f"# phase 7 launches: {launches}; decode sweep: fastest within {bound:.1f} MB of peak RSS growth "
-        f"batch_frames={best} (the default is {DECODE_BATCH_FRAMES}); {time.perf_counter() - t0:.1f} s")
+    mb = sum(slices[n]["samples"].nbytes for n in CLASSES) / 1e6
+    # The median call of each class: a fresh process's first call also
+    # sets up its pinned memory.
+    fits = {c: mb / sum(float(np.median(ts)) for ts in times.values())
+            for c, (times, growth) in sweep.items() if growth < bound}
+    best = max(fits, key=fits.get) if fits else None
+    log(f"# phase 7 launches: {launches}; chunk sweep: fastest within {bound:.1f} MB of peak RSS growth "
+        f"{best} bytes ({fits.get(best, 0):.1f} MB/s over the three classes, the median call of each; "
+        + ", ".join(f"{c >> 20} MB {r:.1f}" for c, r in fits.items())
+        + f"; the default is {files._CHUNK_BYTES >> 20} MB); {time.perf_counter() - t0:.1f} s")
     return rates
 
 
@@ -1912,64 +1959,220 @@ def profile_route_kernels(params, reps: int = 20) -> None:
                 f"(nb4={nb4}, W={b['w_fit']}), bound {bound:.4f} ms ({bound / ms:.0%} of it); {key[:60]}")
 
 
-def phase_profile(params, top: int = 12) -> None:
-    """--profile: where the slice's time goes, per class at full size.  For
-    a warm encode and a warm checked decode: wall ms, then torch.profiler's
-    device ops (their sum against the profiled call's wall gives the
-    device's idle share) and cProfile's host functions, each by self
-    time."""
+def profile_call(name: str, label: str, fn, top: int):
+    """torch.profiler's device rows of one call of fn (their sum against
+    the profiled call's wall gives the device idle share), then cProfile's
+    host functions of another, each by self time (Python 3.12's cProfile
+    sees every thread, the read-ahead and writer threads too)."""
     import cProfile
-    import os
     import pstats
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # Device-side rows only (kernels and copies): a CPU op's row repeats
+    # its kernels' time, and CUPTI's buffer requests are the profiler's own.
+    ka = sorted((e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total
+                 and not e.key.startswith("Activity Buffer")),
+                key=lambda e: e.self_device_time_total, reverse=True)
+    dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
+    log(f"# profile {name} {label}: device {dev_ms:.3f} ms (kernels and copies) in a profiled "
+        f"wall of {wall_ms:.3f} ms: device idle share {1 - dev_ms / wall_ms:.1%}")
+    for e in ka[:top]:
+        log(f"#   device {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, {e.count} calls")
+    pr = cProfile.Profile()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    st = pstats.Stats(pr).sort_stats("tottime")
+    for func in st.fcn_list[:top]:
+        _, ncalls, tottime, _, _ = st.stats[func]
+        path, line, fname = func
+        log(f"#   host {fname} ({os.path.basename(path)}:{line}): {tottime * 1e3:.3f} ms self, {ncalls} calls")
+
+
+def stream_waits(fn) -> dict:
+    """Seconds the calling thread spends in fn() (an x3a_to_wav call)
+    waiting on x3a_to_wav's read-ahead thread for the next chunk, on the
+    events behind the decode's read-backs, and on the WAV writer's queue
+    (its write and its closing drain): each timed around the call on this
+    thread alone, by wrapping it for the duration."""
+    from x3_tpu_torch import files
+    from x3_tpu_torch.models import decoder
+    from x3_tpu_torch.utils import io as xio
+
+    waits = {"reader": 0.0, "event": 0.0, "writer": 0.0}
+
+    def timed(key, f):
+        def g(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                waits[key] += time.perf_counter() - t0
+        return g
+
+    prefetch = files.prefetch_iter
+
+    def timed_prefetch(src, depth=2):
+        it = prefetch(src, depth)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    waits["reader"] += time.perf_counter() - t0
+                yield item
+        finally:
+            it.close()
+
+    saved = (files.prefetch_iter, decoder.wait, xio.AsyncWriter.write, xio.AsyncWriter.close)
+    files.prefetch_iter, decoder.wait = timed_prefetch, timed("event", decoder.wait)
+    xio.AsyncWriter.write = timed("writer", xio.AsyncWriter.write)
+    xio.AsyncWriter.close = timed("writer", xio.AsyncWriter.close)
+    try:
+        fn()
+    finally:
+        files.prefetch_iter, decoder.wait, xio.AsyncWriter.write, xio.AsyncWriter.close = saved
+    return waits
+
+
+def joined_stream(f, wout, start: int, params, batch_frames: int, device) -> int:
+    """--profile's yardstick for x3a_to_wav's chunked stream: the same
+    reads, index and decode (clean archives only), but each chunk read into
+    new bytes and joined with the carry, and each device batch's span
+    copied once into a new pinned buffer, where the stream reads chunks
+    straight into a pool of pinned buffers."""
+    import torch
+
+    from x3_tpu_torch import archive, files
+    from x3_tpu_torch.models.decoder import decode_frames_indexed
+    from x3_tpu_torch.models.staging import host_empty
+    from x3_tpu_torch.utils.io import prefetch_iter
+
+    f.seek(0, 2)
+    n = f.tell()
+
+    def _reads():
+        f.seek(start)
+        p = start
+        while p < n:
+            chunk = f.read(files._CHUNK_BYTES)
+            if not chunk:
+                return
+            p += len(chunk)
+            yield chunk
+
+    reads = prefetch_iter(_reads(), depth=1)
+    pos, carry = start, b""
+    try:
+        while True:
+            chunk = next(reads, None)
+            eof, blob = (True, carry) if chunk is None else (pos + len(chunk) >= n, carry + chunk)
+            pos += 0 if chunk is None else len(chunk)
+            if not blob:
+                return 0
+            arr = np.frombuffer(blob, np.uint8)
+            offs, ns, lens = archive.index_frames(arr)
+            want = (arr[offs - 2].astype(np.int64) << 8) | arr[offs - 1]
+            for s in range(0, len(offs), batch_frames):
+                cut = slice(s, s + batch_frames)
+                lo, hi = int(offs[cut][0]), int(offs[cut][-1] + lens[cut][-1])
+                span = host_empty(hi - lo, torch.uint8, device)
+                span.numpy()[:] = arr[lo:hi]
+                samples, errs, crc_ok = decode_frames_indexed(span, offs[cut] - lo, ns[cut], lens[cut], params,
+                                                              check_crcs=want[cut], device=device)
+                require(crc_ok.all() and not errs.any(), "joined_stream: a damaged frame")
+                wout.write(samples)
+            carry = blob[int(offs[-1] + lens[-1]) if len(offs) else 0 :]
+            if eof:
+                require(len(carry) <= 20, "joined_stream: a damaged tail")
+                return 0
+    finally:
+        reads.close()
+
+
+def stream_designs(x3a, back, mb: float, turns: int = 2, calls: int = 3) -> str:
+    """x3a_to_wav as built against joined_stream in its place, in turns
+    (built, joined, joined, built) `turns` times, `calls` warm calls a
+    turn: the median and min-max MB/s of each, as text."""
+    from x3_tpu_torch import files
+
+    built, times = files._x3a_to_wav_stream, {"pinned pool": [], "joined": []}
+    try:
+        for turn in ["pinned pool", "joined", "joined", "pinned pool"] * turns:
+            files._x3a_to_wav_stream = built if turn == "pinned pool" else joined_stream
+            files.x3a_to_wav(x3a, back, device=DEV)  # warm
+            times[turn] += [timed_call(lambda: files.x3a_to_wav(x3a, back, device=DEV))[0] for _ in range(calls)]
+    finally:
+        files._x3a_to_wav_stream = built
+    return "; ".join(f"{k} median {mb / float(np.median(v)):.1f} MB/s, min-max {mb / max(v):.1f}-{mb / min(v):.1f} "
+                     f"over {len(v)} calls" for k, v in times.items())
+
+
+def phase_profile(params, top: int = 12) -> None:
+    """--profile: where the time goes, per class at full size.  For a warm
+    encode, a warm checked decode and x3a_to_wav of the class's 6,144-frame
+    archive: wall ms, then torch.profiler's device ops (their sum against
+    the profiled call's wall gives the device's idle share) and cProfile's
+    host functions, each by self time; for x3a_to_wav also the walker's
+    (resync=True) wall in the same run, the stream against joined_stream
+    (stream_designs), and the ms the main thread waits on the read-ahead
+    thread, on the events behind the read-backs and on the WAV writer's
+    queue in one more call (stream_waits)."""
     import x3_tpu_torch as xt
+    from x3_tpu_torch import files
 
     S = params.samples_per_frame
     header = xt.build_archive_header(SAMPLE_RATE, params)
-    for name in CLASSES:
-        samples = make_class_corpus(name, N_FRAMES_SLICE, S)
-        mb = samples.nbytes / 1e6
-        slice_once(params, samples, header)  # warm-up
-        _, _, (payloads, counts, crcs), _, (t_enc, _, t_dec) = slice_once(params, samples, header)
-        log(f"# profile {name}: encode {t_enc * 1e3:.3f} ms ({mb / t_enc:.1f} MB/s), "
-            f"decode {t_dec * 1e3:.3f} ms ({mb / t_dec:.1f} MB/s), unprofiled wall")
-        steps = (("encode", lambda: xt.encode(samples, params, device=DEV)),
-                 ("decode", lambda: xt.decode_frames_batch(payloads, counts, params,
-                                                           check_crcs=crcs, device=DEV)))
-        for label, fn in steps:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            # Device-side rows only (kernels and copies): a CPU op's row
-            # repeats its kernels' time, and CUPTI's buffer requests are
-            # the profiler's own.
-            ka = sorted((e for e in prof.key_averages()
-                         if e.device_type == DeviceType.CUDA and e.self_device_time_total
-                         and not e.key.startswith("Activity Buffer")),
-                        key=lambda e: e.self_device_time_total, reverse=True)
-            dev_ms = sum(e.self_device_time_total for e in ka) / 1e3
-            log(f"# profile {name} {label}: device {dev_ms:.3f} ms (kernels and copies) in a profiled "
-                f"wall of {wall_ms:.3f} ms: device idle share {1 - dev_ms / wall_ms:.1%}")
-            for e in ka[:top]:
-                log(f"#   device {e.key[:70]}: {e.self_device_time_total / 1e3:.3f} ms, "
-                    f"{e.count} calls")
-            pr = cProfile.Profile()
-            pr.enable()
-            fn()
-            torch.cuda.synchronize()
-            pr.disable()
-            st = pstats.Stats(pr).sort_stats("tottime")
-            for func in st.fcn_list[:top]:
-                _, ncalls, tottime, _, _ = st.stats[func]
-                path, line, fname = func
-                log(f"#   host {fname} ({os.path.basename(path)}:{line}): {tottime * 1e3:.3f} ms self, "
-                    f"{ncalls} calls")
+    with tempfile.TemporaryDirectory(prefix="x3_profile_") as tmp:
+        td = Path(tmp)
+        for name in CLASSES:
+            samples = make_class_corpus(name, N_FRAMES_SLICE, S)
+            mb = samples.nbytes / 1e6
+            slice_once(params, samples, header)  # warm-up
+            _, _, (payloads, counts, crcs), _, (t_enc, _, t_dec) = slice_once(params, samples, header)
+            log(f"# profile {name}: encode {t_enc * 1e3:.3f} ms ({mb / t_enc:.1f} MB/s), "
+                f"decode {t_dec * 1e3:.3f} ms ({mb / t_dec:.1f} MB/s), unprofiled wall")
+            src, x3a, back = td / f"{name}.wav", td / f"{name}.x3a", td / f"{name}.back.wav"
+            write_class_wav(src, samples)
+            files.wav_to_x3a(src, x3a, device=DEV)
+            stream = lambda: files.x3a_to_wav(x3a, back, device=DEV)
+            stream()  # warm-up
+            walls = [timed_call(stream)[0] for _ in range(3)]
+            walks = [timed_call(lambda: files.x3a_to_wav(x3a, back, resync=True, device=DEV))[0]
+                     for _ in range(3)]
+            log(f"# profile {name}: x3a_to_wav " + ", ".join(f"{t * 1e3:.3f} ms ({mb / t:.1f} MB/s)" for t in walls)
+                + "; the walker (resync=True) " + ", ".join(f"{t * 1e3:.3f} ms ({mb / t:.1f} MB/s)" for t in walks)
+                + "; unprofiled walls, 3 warm calls each")
+            log(f"# profile {name} x3a_to_wav designs ({files._CHUNK_BYTES >> 20} MB chunks): "
+                f"{stream_designs(x3a, back, mb)}")
+            steps = (("encode", lambda: xt.encode(samples, params, device=DEV)),
+                     ("decode", lambda: xt.decode_frames_batch(payloads, counts, params,
+                                                               check_crcs=crcs, device=DEV)),
+                     ("x3a_to_wav", stream))
+            for label, fn in steps:
+                profile_call(name, label, fn, top)
+            t0 = time.perf_counter()
+            waits = stream_waits(stream)
+            wall = time.perf_counter() - t0
+            require(same_wav(back, src), f"profile {name}: x3a_to_wav differs from the input")
+            log(f"# profile {name} x3a_to_wav waits of the main thread in a wall of {wall * 1e3:.3f} ms: "
+                f"on the reader {waits['reader'] * 1e3:.3f} ms, on the read-back events "
+                f"{waits['event'] * 1e3:.3f} ms, on the WAV writer's queue {waits['writer'] * 1e3:.3f} ms")
+            for p in (src, x3a, back):
+                p.unlink()
 
 
 def main() -> int:

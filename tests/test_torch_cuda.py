@@ -368,6 +368,62 @@ def test_file_roundtrip_on_cuda_matches_cpu(cuda, tmp_path, params, batch):
     assert min(crc_cuda.launch_count, decode_cuda.launch_count, encode_cuda.launch_count) > 0
 
 
+def _stream_archive(tmp_path, params, n_frames: int, seed: int):
+    """A WAV of n_frames frames and 5 samples, and its archive from the CPU."""
+    from x3_tpu_torch import files
+    from x3_tpu_torch.utils.wav import write_wav
+
+    src, x3a = tmp_path / "in.wav", tmp_path / "in.x3a"
+    write_wav(src, _mixed(np.random.default_rng(seed), params.samples_per_frame * n_frames + 5), 96000)
+    files.wav_to_x3a(src, x3a, params, device="cpu")
+    return src, x3a
+
+
+@pytest.mark.parametrize("params,n_frames,chunk", [(GEOMETRIES[0], 9, 200), (GEOMETRIES[1], 24, 50_000)],
+                         ids=["tiny-chunk200", "default-chunk50k"])
+def test_file_stream_on_cuda_matches_cpu_and_walker(cuda, tmp_path, monkeypatch, params, n_frames, chunk):
+    """x3a_to_wav's chunked stream on the card, through K3 and K1 with
+    frames carried across chunks, gives the input, the CPU stream's WAV (at
+    the default chunk) and the walker's (resync=True) byte for byte."""
+    from x3_tpu_torch import files
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda
+
+    src, x3a = _stream_archive(tmp_path, params, n_frames, 23)
+    assert files.x3a_to_wav(x3a, tmp_path / "cpu.wav", batch_frames=3, device="cpu") == 0
+    monkeypatch.setattr(files, "_CHUNK_BYTES", chunk)
+    assert files.x3a_to_wav(x3a, tmp_path / "walk.wav", resync=True, device=cuda) == 0
+    for mod in (crc_cuda, decode_cuda):
+        mod.launch_count = 0
+    assert files.x3a_to_wav(x3a, tmp_path / "gpu.wav", batch_frames=3, device=cuda) == 0
+    assert crc_cuda.launch_count > 0 and decode_cuda.launch_count > 0
+    want = src.read_bytes()
+    for name in ("gpu", "cpu", "walk"):
+        assert (tmp_path / f"{name}.wav").read_bytes() == want, name
+
+
+def test_file_stream_payload_crc_error_on_cuda(cuda, tmp_path, monkeypatch):
+    """A flipped payload byte several chunks in raises on the card with the
+    CPU's message, which names the frame's global number."""
+    from x3_tpu_torch import archive, files
+    from x3_tpu_torch.errors import FrameHeaderInvalidPayloadCRC
+
+    params = GEOMETRIES[0]
+    _, x3a = _stream_archive(tmp_path, params, 9, 24)
+    with open(x3a, "rb") as f:
+        _, header_size = archive.read_archive_header_file(f)
+    data = bytearray(x3a.read_bytes())
+    offs, _, lens = archive.index_frames(bytes(data), header_size)
+    data[int(offs[6] + lens[6] // 2)] ^= 0x08
+    x3a.write_bytes(bytes(data))
+    monkeypatch.setattr(files, "_CHUNK_BYTES", 200)
+    msgs = []
+    for dev in (cuda, "cpu"):
+        with pytest.raises(FrameHeaderInvalidPayloadCRC) as e:
+            files.x3a_to_wav(x3a, tmp_path / "out.wav", device=dev)
+        msgs.append(str(e.value))
+    assert msgs == ["frame 6 payload CRC mismatch"] * 2
+
+
 def _signal(rng, n: int) -> np.ndarray:
     return _mixed(rng, n) if n >= 6 else rng.integers(-99, 99, n).astype(np.int16)
 
@@ -630,7 +686,8 @@ def test_submit_and_upload_never_block(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out, err, crc, ns = decoder._walk(payloads, counts, params, True, Mesh([cuda]))
+        data, offsets, lengths = decoder._join(payloads, cuda)
+        out, err, crc, ns = decoder._walk(data, offsets, lengths, counts, params, True, Mesh([cuda]))
         flat = decoder.compact_frames(out, ns[:16], 16 * S)
     finally:
         torch.cuda.set_sync_debug_mode(0)

@@ -15,10 +15,12 @@ from .models.encoder import DEFAULT_BATCH_FRAMES as ENCODE_BATCH_FRAMES
 ENGINES = ("torch",)
 
 # Frames per device call on the file paths: encode takes the encoder's
-# batch; decode the fastest of 768, 2,048 and 6,144 frames in x3a_to_wav on
-# an H100 whose peak RSS growth stays under half the WAV's size
-# (chip_smoke.py phase 7; PERF.md): 768 and 2,048 ran level or 768 ahead,
-# and 768 grows the peak RSS by less than half as much.
+# batch; decode the fastest of 768, 2,048 and 6,144 frames in the
+# seek-walking x3a_to_wav (now resync=True's) on an H100 whose peak RSS
+# growth stays under half the WAV's size (PERF.md): 768 and 2,048 ran level
+# or 768 ahead, and 768 grows the peak RSS by less than half as much.  The
+# chunked x3a_to_wav decodes a chunk's frames in slices of at most this
+# many.
 DECODE_BATCH_FRAMES = 768
 
 

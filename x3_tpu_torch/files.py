@@ -2,11 +2,14 @@
 x3a_info, verify_x3a and the random-access X3aReader.
 
 Every conversion runs the port's batched pipeline on `device`: encode
-through `encode` (kernels K2 and K1 on "cuda"), decode through
-`decode_frames_flat(..., check_crcs=...)` (K3 and K1), with the plain
-PyTorch versions on "cpu".  Memory is bounded in both directions: encode
-reads the WAV a batch at a time; decode walks the frame headers with
-seeks, reads the payloads a batch at a time and appends to the WAV.
+through `encode` (kernels K2 and K1 on "cuda"), decode with the payload
+CRCs checked (K3 and K1), with the plain PyTorch versions on "cpu".
+Memory is bounded in both directions: encode reads the WAV a batch at a
+time; x3a_to_wav reads the archive in sequential chunks on a read-ahead
+thread, indexes each chunk's frames in memory and decodes them from the
+chunk (_x3a_to_wav_stream), and appends to the WAV.  With resync, and in
+verify_x3a and X3aReader, the frame headers are walked with seeks and the
+payloads read a batch at a time.
 
 As in the reference, header and payload CRC mismatches raise, and a frame
 that fails to decode is counted and stops the decode.  With resync=True
@@ -19,13 +22,15 @@ from __future__ import annotations
 import wave
 
 import numpy as np
+import torch
 
 from . import archive, constants
 from .device import resolve_device
 from .engine import resolve_batch_frames, resolve_engine
-from .errors import FrameHeaderInvalidPayloadCRC, X3Error, decode_error
-from .models.decoder import decode_frames_batch, decode_frames_flat
+from .errors import FrameHeaderInvalidPayloadCRC, FrameHeaderInvalidPayloadLen, X3Error, decode_error
+from .models.decoder import decode_frames_batch, decode_frames_flat, decode_frames_indexed
 from .models.encoder import EncodeResult
+from .models.staging import BufferPool, host_empty
 from .params import Parameters, X3aSpec
 from .streaming import StreamEncoder, check_mono16
 from .utils.io import prefetch_iter
@@ -111,6 +116,119 @@ def _batches(walker, batch_frames: int):
         yield batch
 
 
+# Sequential read size of x3a_to_wav's chunked decode (x3_tpu's
+# _NATIVE_CHUNK_BYTES, 4 MB): a chunk's frames are indexed and decoded
+# together, in slices of at most batch_frames frames.  chip_smoke.py's
+# phase 7 sweeps 4, 8 and 16 MB on an H100: 8 and 16 MB decode level with
+# each other and up to 1.6x faster than 4 MB on music, whose 4 MB chunks
+# hold about 270 frames (a K3 launch costs about 1.1 ms whatever the
+# lanes); 8 MB grows the peak RSS about half as much as 16 MB.
+_CHUNK_BYTES = 8 << 20
+_CHUNK_FRONT = constants.FRAME_HEADER_LENGTH + constants.FRAME_MAX_LENGTH  # room for the carry
+
+
+def _x3a_to_wav_stream(f, wout, start: int, params: Parameters, batch_frames: int, device) -> int:
+    """The chunked decode of x3a_to_wav without resync (x3_tpu's
+    _x3a_to_wav_native_stream): sequential reads of _CHUNK_BYTES on a
+    read-ahead thread, an in-memory frame index of each chunk with the
+    header CRCs checked (archive.index_frames), and each chunk's frames
+    decoded from the chunk's bytes with their payload CRCs checked
+    (decode_frames_indexed), a slice of at most batch_frames frames a
+    device call.  A frame that straddles two chunks is carried into the
+    next.  Returns the frame errors (0, or 1 at the first frame that fails
+    to decode, as the reference stops there).
+
+    The walker's errors: the tail that the index stops at is parsed again
+    with archive.read_frame_header, which raises the walker's class
+    (header CRC, key, FrameLength, MoreThanOneChannel); a payload that runs
+    past the end raises FrameHeaderInvalidPayloadLen with the walker's
+    message; at most a header's worth of trailing bytes ends the decode
+    silently.
+
+    Each chunk is read into the back of one of three host buffers (pinned
+    for a CUDA device), whose front holds the carry, so the payload bytes
+    are copied once on the host; a buffer goes back to the reader once the
+    chunk's last device call has returned, whose read-back waited on an
+    event behind the chunk's uploads."""
+    f.seek(0, 2)
+    n = f.tell()
+    front, hl = _CHUNK_FRONT, constants.FRAME_HEADER_LENGTH
+    size = front + max(1, min(_CHUNK_BYTES, n - start))
+    pool = BufferPool(host_empty(size, torch.uint8, device) for _ in range(3))
+
+    def _reads():
+        # Only this generator touches `f` once the loop below starts.
+        f.seek(start)
+        p = start
+        while p < n:
+            buf = pool.acquire()
+            got = f.readinto(memoryview(buf.numpy())[front:])
+            if not got:
+                pool.release(buf)
+                return
+            p += got
+            yield buf, got
+
+    reads = prefetch_iter(_reads(), depth=1)
+    pos = start
+    carry = np.zeros(0, np.uint8)
+    base = 0  # global frame number of the blob's first frame
+    try:
+        while True:
+            item = next(reads, None)
+            if item is None:
+                buf, eof, blob_t = None, True, torch.from_numpy(carry)
+            else:
+                buf, got = item
+                pos += got
+                eof = pos >= n
+                blob_t = buf[front - len(carry) : front + got]
+                blob_t.numpy()[: len(carry)] = carry
+            blob = blob_t.numpy()
+            if not len(blob):
+                return 0
+            offs, ns, lens = archive.index_frames(blob)
+            want = (blob[offs - 2].astype(np.int64) << 8) | blob[offs - 1]  # stored payload CRCs
+            for s in range(0, len(offs), batch_frames):
+                cut = slice(s, s + batch_frames)
+                samples, errs, crc_ok = decode_frames_indexed(blob_t, offs[cut], ns[cut], lens[cut], params,
+                                                              check_crcs=want[cut], device=device)
+                if not crc_ok.all():
+                    bad = int(np.argmin(crc_ok))
+                    raise FrameHeaderInvalidPayloadCRC(f"frame {base + s + bad} payload CRC mismatch")
+                if errs.any():
+                    i = int(np.argmax(errs != 0))
+                    wout.write(samples[: int(ns[s : s + i].sum())])
+                    print(f"Frame error: frame {base + s + i} failed to decode")
+                    return 1
+                wout.write(samples)
+            base += len(offs)
+            carry = blob[int(offs[-1] + lens[-1]) if len(offs) else 0 :].copy()
+            if buf is not None:
+                pool.release(buf)
+            if eof:
+                if len(carry) <= hl:
+                    return 0
+                header = archive.read_frame_header(carry[:hl].tobytes())  # raises the walker's class
+                raise FrameHeaderInvalidPayloadLen(
+                    f"frame at {n - len(carry)}: payload {header.payload_len} B overruns "
+                    f"the remaining {len(carry) - hl} B"
+                )
+            if len(carry) > front:
+                # No frame spans this much (a payload is shorter than
+                # FRAME_MAX_LENGTH): the header the index stopped at is bad.
+                # x3_tpu raises here one chunk later, when no frame was
+                # indexed; the error is the same, and the carry always
+                # fits the buffer's front.
+                archive.read_frame_header(carry[:hl].tobytes())
+                raise FrameHeaderInvalidPayloadLen(  # pragma: no cover - defensive
+                    f"frame at {n - len(carry)}: unindexable valid header"
+                )
+    finally:
+        pool.close()  # wakes a reader waiting for a buffer
+        reads.close()
+
+
 def x3a_to_wav(
     x3a_filename,
     wav_filename,
@@ -122,8 +240,11 @@ def x3a_to_wav(
     device="cuda",
 ) -> int:
     """Convert an .x3a archive to a .wav file; returns the number of frame
-    errors.  Frames are indexed by header-only seeks and decoded a batch at
-    a time into an incrementally written WAV."""
+    errors.  Without resync the archive is read in sequential chunks and
+    each chunk's frames decoded from it (_x3a_to_wav_stream); with resync
+    the frames are walked with header-only seeks and the sync scanner.
+    Either way they are decoded at most batch_frames at a time into an
+    incrementally written WAV."""
     engine = resolve_engine(engine)
     batch_frames = resolve_batch_frames(batch_frames, engine, decode=True)
     device = resolve_device(device)
@@ -138,10 +259,12 @@ def x3a_to_wav(
             t = spec.params.thresholds
             print(f"thresholds: {t[0]},{t[1]},{t[2]}")
         with WavWriter(wav_filename, spec.sample_rate) as wout:
+            if not resync:
+                return _x3a_to_wav_stream(f, wout, header_size, spec.params, batch_frames, device)
             base = 0
-            for batch in _batches(archive.walk_frames_file(f, header_size, resync=resync), batch_frames):
+            for batch in _batches(archive.walk_frames_file(f, header_size, resync=True), batch_frames):
                 samples, bounds, errs = _decode_payload_batch(
-                    _read_payloads(f, batch), [h for _, h in batch], spec.params, resync, device, base
+                    _read_payloads(f, batch), [h for _, h in batch], spec.params, True, device, base
                 )
                 if not np.any(errs):
                     wout.write(samples)
@@ -150,8 +273,6 @@ def x3a_to_wav(
                         if err:
                             frame_errors += 1
                             print(f"Frame error: frame {base + i} failed to decode")
-                            if not resync:
-                                return frame_errors  # the reference stops at the first bad frame
                             continue
                         wout.write(samples[bounds[i] : bounds[i + 1]])
                 base += len(batch)

@@ -1,14 +1,17 @@
 """Public decode API of the port (x3_tpu.models.decoder).
 
-Decodes many frame payloads at once: the payloads are joined into one
-buffer and copied to the device with their offsets and lengths (pinned,
-non-blocking on a card), where the big-endian payload words [F, W] are
-gathered with a width and block count that follow the batch
-(decode_geometry) and the lane count padded to a power of two; the
-frames are walked there, optionally with the payload CRCs checked too,
-and read back in one pinned copy behind an event: as one array a frame
-(views of it) or, compacted on the device, as the frames' samples back to
-back (decode_frames_flat)."""
+Decodes many frame payloads at once from one host buffer: the bytes from
+the first payload to the end of the last go to the device in one copy,
+with the payloads' offsets and lengths (pinned, non-blocking on a card),
+where the big-endian payload words [F, W] are gathered with a width and
+block count that follow the batch (decode_geometry) and the lane count
+padded to a power of two; the frames are walked there, optionally with
+the payload CRCs checked too, and read back in one pinned copy behind an
+event: as one array a frame (views of it) or, compacted on the device, as
+the frames' samples back to back (decode_frames_flat,
+decode_frames_indexed).  The buffer is a chunk of an archive as read
+(decode_frames_indexed, under the file decode) or the payloads of a list
+joined into one (the other calls)."""
 
 from __future__ import annotations
 
@@ -33,8 +36,8 @@ def decode_geometry(params: Parameters, n_samples, payload_lens):
     w_words: the smallest width rung holding the longest payload, doubling
       past the worst case when needed."""
     S, B, L, _ = frame_geometry(params)
-    max_n = max((int(n) for n in n_samples), default=0)
-    maxlen = max((int(p) for p in payload_lens), default=0)
+    max_n = int(np.max(n_samples, initial=0))
+    maxlen = int(np.max(payload_lens, initial=0))
     n_blocks = None
     if max_n > S:
         n_blocks = B
@@ -75,42 +78,74 @@ def payload_batch(payloads, n_samples, params: Parameters, shards: int = 1):
     return buf, ns, plens, n_blocks
 
 
-def upload_words(payloads, n_samples, params: Parameters, device, shards: int = 1):
-    """One decode batch on `device`: (words int32 [Fp, w], ns int32 [Fp],
-    plens int32 [Fp], n_blocks), equal to payload_words of payload_batch's
-    buffer and its ns and plens.  The payloads are copied back to back into
-    one pinned buffer, their offsets, lengths and sample counts into
-    another, and both go to the device without blocking; the words are
-    gathered there (ops.decode_kernel.packed_payload_words)."""
+def _join(payloads, device):
+    """The payloads back to back in one new host buffer (pinned for a CUDA
+    device), copied once: (uint8 tensor, offsets int64 [F], lengths int64
+    [F])."""
+    lens = np.fromiter((len(p) for p in payloads), dtype=np.int64, count=len(payloads))
+    offs = np.cumsum(lens) - lens
+    data_t = host_empty(int(lens.sum()), torch.uint8, device)
+    data, at = memoryview(data_t.numpy()), 0
+    for p, n in zip(payloads, lens.tolist()):
+        data[at : at + n] = p
+        at += n
+    return data_t, offs, lens
+
+
+def _host_bytes(data) -> torch.Tensor:
+    """`data` as a host uint8 tensor: a tensor as it is, a buffer viewed
+    (copied only when it is read-only, as bytes are)."""
+    if isinstance(data, torch.Tensor):
+        return data
+    arr = np.frombuffer(data, dtype=np.uint8)
+    return torch.from_numpy(arr if arr.flags.writeable else arr.copy())
+
+
+def upload_span(data: torch.Tensor, offsets, lengths, n_samples, params: Parameters, device,
+                shards: int = 1):
+    """One decode batch on `device` from the payloads at `offsets` (of
+    `lengths` bytes) in the host uint8 tensor `data`: (words int32 [Fp,
+    w], ns int32 [Fp], plens int32 [Fp], n_blocks), equal to payload_words
+    of payload_batch's buffer and its ns and plens.  The bytes from the
+    first payload's start to the last one's end (what lies between them,
+    such as frame headers, with them) go to the device in one non-blocking
+    copy, and the offsets, lengths and sample counts in another; the words
+    are gathered there (ops.decode_kernel.packed_payload_words).  `data`
+    must not change until the copy has completed: pinned memory is read by
+    the device after this call returns."""
     from ..ops.decode_kernel import packed_payload_words
 
-    f = len(payloads)
-    lens = [len(p) for p in payloads]
-    n_blocks, w = decode_geometry(params, n_samples, lens)
+    f = len(offsets)
+    offsets = np.asarray(offsets, dtype=np.int64)
+    lengths = np.asarray(lengths, dtype=np.int64)
+    n_blocks, w = decode_geometry(params, n_samples, lengths)
+    lo, hi = int(offsets.min()), int((offsets + lengths).max())
     meta_t = host_empty((3, _lanes(f, shards)), torch.int32, device)
     meta = meta_t.numpy()  # offsets, lengths, sample counts; pad lanes: no bytes
     meta[:] = 0
-    meta[1, :f] = lens
+    meta[0, :f] = offsets - lo
+    meta[0, f:] = hi - lo
+    meta[1, :f] = lengths
     meta[2, :f] = n_samples
-    meta[0, 1:f] = np.cumsum(lens[:-1])
-    meta[0, f:] = sum(lens)
-    data_t = host_empty(sum(lens), torch.uint8, device)
-    data, at = memoryview(data_t.numpy()), 0  # the payloads back to back, copied once
-    for p, n in zip(payloads, lens):
-        data[at : at + n] = p
-        at += n
-    meta_t, data_t = meta_t.to(device, non_blocking=True), data_t.to(device, non_blocking=True)
-    return packed_payload_words(data_t, meta_t[0], meta_t[1], w), meta_t[2], meta_t[1], n_blocks
+    meta_t, span = meta_t.to(device, non_blocking=True), data[lo:hi].to(device, non_blocking=True)
+    return packed_payload_words(span, meta_t[0], meta_t[1], w), meta_t[2], meta_t[1], n_blocks
 
 
-def _walk(payloads, n_samples, params: Parameters, checked: bool, mesh):
+def upload_words(payloads, n_samples, params: Parameters, device, shards: int = 1):
+    """upload_span of a list of payloads (bytes), joined into one pinned
+    buffer first."""
+    return upload_span(*_join(payloads, device), n_samples, params, device, shards)
+
+
+def _walk(data, offsets, lengths, n_samples, params: Parameters, checked: bool, mesh):
     """Upload and walk one decode batch on the mesh (each shard walked, and
     CRC-checked when `checked`, on its entry's device): (out int16 [Fp,
     S'], err int32 [Fp], crc int32 [Fp] or None, ns int32 [Fp]), gathered on
     the mesh's first device, nothing read back."""
     from ..ops.decode_kernel import decode_words, decode_words_checked
 
-    words, ns, plens, n_blocks = upload_words(payloads, n_samples, params, mesh.devices[0], mesh.size)
+    words, ns, plens, n_blocks = upload_span(data, offsets, lengths, n_samples, params, mesh.devices[0],
+                                             mesh.size)
     run = decode_words_checked if checked else decode_words
     out, err, crc = shard_map(lambda w, n, pl: run(w, n, pl, params, n_blocks), mesh, words, ns, plens)
     return out, err, (crc if checked else None), ns
@@ -145,7 +180,8 @@ def decode_frames_batch(payloads, n_samples, params: Parameters | None = None,
     if f == 0:
         empty = ([], np.zeros(0, np.int32))
         return empty if check_crcs is None else empty + (np.zeros(0, bool),)
-    out, err, crc, _ = _walk(payloads, n_samples, params, check_crcs is not None, mesh)
+    data, offsets, lengths = _join(payloads, mesh.devices[0])
+    out, err, crc, _ = _walk(data, offsets, lengths, n_samples, params, check_crcs is not None, mesh)
     *head, host = _read_back(f, err, crc, check_crcs, out[:f])
     outs = [host[i, :n] for i, n in enumerate(np.asarray(n_samples).tolist())]
     return (outs, *head)
@@ -166,17 +202,37 @@ def decode_frames_flat(payloads, n_samples, params: Parameters | None = None,
                        check_crcs=None, device="cuda", mesh=None):
     """decode_frames_batch with the frames' samples back to back: (int16
     [sum(n_samples)], err) or, with check_crcs, (samples, err, crc_ok).
-    The samples are compacted on the device (compact_frames) and read back
-    in one copy; frame i is samples[c[i]:c[i + 1]] for c the cumsum of
-    n_samples from 0, error lanes included, equal to decode_frames_batch's
-    arrays."""
+    decode_frames_indexed over the payloads joined into one buffer."""
+    mesh = check_mesh(mesh, device)
+    data, offsets, lengths = _join(payloads, mesh.devices[0])
+    return decode_frames_indexed(data, offsets, n_samples, lengths, params, check_crcs, device, mesh)
+
+
+def decode_frames_indexed(data, offsets, n_samples, payload_lens, params: Parameters | None = None,
+                          check_crcs=None, device="cuda", mesh=None):
+    """Decode the frames whose payloads lie in one host buffer `data` at
+    `offsets`, of `payload_lens` bytes, with their sample counts (the
+    counterpart of x3_tpu.native.decode_frames_mt over an index_frames
+    index): (int16 [sum(n_samples)], err) or, with check_crcs (the
+    expected payload CRC16s), (samples, err, crc_ok), as decode_frames_flat
+    returns them.  The span from the first payload to the end of the last
+    goes to the device in one copy (upload_span); the samples are
+    compacted on the device (compact_frames) and read back in one copy;
+    frame i is samples[c[i]:c[i + 1]] for c the cumsum of n_samples from 0,
+    error lanes included.
+
+    data: a host uint8 tensor (pinned for a CUDA device, to copy without
+      blocking), or bytes, bytearray or a uint8 array.
+    mesh: a models.sharding.Mesh of `device`'s type to shard the batch
+      over."""
     mesh = check_mesh(mesh, device)
     params = params or Parameters()
-    f = len(payloads)
+    f = len(offsets)
     if f == 0:
         empty = (np.zeros(0, np.int16), np.zeros(0, np.int32))
         return empty if check_crcs is None else empty + (np.zeros(0, bool),)
-    out, err, crc, ns = _walk(payloads, n_samples, params, check_crcs is not None, mesh)
+    out, err, crc, ns = _walk(_host_bytes(data), offsets, payload_lens, n_samples, params,
+                              check_crcs is not None, mesh)
     flat = compact_frames(out, ns[:f], int(np.sum(n_samples, dtype=np.int64)))
     *head, host = _read_back(f, err, crc, check_crcs, flat)
     return (host, *head)

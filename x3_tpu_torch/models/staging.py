@@ -58,28 +58,26 @@ class Staging:
         self.n_valid = host_empty(frames, torch.int32, device)
 
 
-class StagingPool:
-    """A fixed set of staging buffers for batches of up to `frames` frames,
-    pinned when `device` is a CUDA device.  A loop takes a buffer, fills
-    it, submits the batch from it, and gives it back once that batch is
-    finished: by then the H2D copy that read it has completed (finish waits
-    on an event behind it), and a re-dispatch no longer needs it.  acquire()
-    blocks while every buffer is out; close() wakes a blocked acquire,
+class BufferPool:
+    """A fixed set of host buffers that a filling thread and a consuming
+    loop pass between them.  acquire() blocks while every buffer is out;
+    release() gives one back once nothing reads it any more (the copy of
+    it to the device has completed); close() wakes a blocked acquire,
     which then raises, so a filling thread stops when its loop does."""
 
-    def __init__(self, n: int, frames: int, spf: int, device: torch.device):
-        self._free = [Staging(frames, spf, device) for _ in range(n)]
+    def __init__(self, buffers):
+        self._free = list(buffers)
         self._cv = threading.Condition()
         self._closed = False
 
-    def acquire(self) -> Staging:
+    def acquire(self):
         with self._cv:
             self._cv.wait_for(lambda: self._free or self._closed)
             if self._closed:
                 raise RuntimeError("the staging pool is closed")
             return self._free.pop()
 
-    def release(self, buf: Staging) -> None:
+    def release(self, buf) -> None:
         with self._cv:
             self._free.append(buf)
             self._cv.notify()
@@ -88,3 +86,14 @@ class StagingPool:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+
+
+class StagingPool(BufferPool):
+    """`n` staging buffers for batches of up to `frames` frames, pinned when
+    `device` is a CUDA device.  A loop takes a buffer, fills it, submits
+    the batch from it, and gives it back once that batch is finished: by
+    then the H2D copy that read it has completed (finish waits on an event
+    behind it), and a re-dispatch no longer needs it."""
+
+    def __init__(self, n: int, frames: int, spf: int, device: torch.device):
+        super().__init__(Staging(frames, spf, device) for _ in range(n))
