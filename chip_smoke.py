@@ -5,7 +5,10 @@
     python3 chip_smoke.py --profile  # phases 1-2, then where the time goes: K4-K6
                                      # alone, then the slice and x3a_to_wav
                                      # (wall ms, device rows, the device idle
-                                     # share, host rows, the file decode's waits)
+                                     # share, host rows, the file decode's waits),
+                                     # then x3a_to_wav_batch, decode_streams and
+                                     # x3m_to_wav on phase 8's files and capture
+    python3 chip_smoke.py --profile batch  # phases 1-2 and the last three alone
 
 Phases (any failure raises and the exit code is non-zero):
 
@@ -84,9 +87,12 @@ Phases (any failure raises and the exit code is non-zero):
    921.6 MB) through wav_to_x3m (each channel's archive equal to the
    port's encode of that channel) and x3m_to_wav (equal to the input),
    verify_x3m and x3m_info, x3m_to_wav in a fresh process with its peak
-   RSS growth under half the WAV, a damaged payload byte in channel 2, and
-   the CLI's wav -> x3m -> wav on a 2-frame capture; K1-K3 must have been
-   launched by it;
+   RSS growth under half the WAV, a damaged payload byte in channel 2, a
+   CRC mismatch and a decode error in windows 1 and 2 of two channels in
+   each order (the window-1 frame's class and message, window 0 written),
+   and the CLI's wav -> x3m -> wav on a 2-frame capture; K1-K3 must have
+   been launched by it, and K1 no more often than K2 and K3 together (the
+   decodes check their CRCs inside each call);
 9. the mesh, the profiling hooks and a soak (x3_tpu_torch.parallel.mesh,
    entry, utils.profiling, tools.fuzz_soak): a mesh of every visible card
    and, on a one-card machine, meshes of two and four entries of cuda:0
@@ -1357,27 +1363,35 @@ def phase_files(params, slices, kernels: dict, smi: str) -> dict:
     return rates
 
 
+def write_batch_wavs(params, td: Path):
+    """Phase 8's WAVs in `td`: MF_FILES files of the three classes in turn,
+    each of a length uniform in 1..MF_MAX_SAMPLES and made from its own
+    seed, and the MF_FIXED lengths.  Returns (paths, samples, lengths, MB
+    of int16)."""
+    S = params.samples_per_frame
+    rng = np.random.default_rng(20261020)
+    lengths = [int(n) for n in rng.integers(1, MF_MAX_SAMPLES + 1, MF_FILES)] + list(MF_FIXED)
+    arrays = [make_class_corpus(CLASSES[k % 3], max(1, -(-n // S)), S, seed=1000 + k)[:n]
+              for k, n in enumerate(lengths)]
+    srcs = [td / f"mf{k}.wav" for k in range(len(arrays))]
+    for src, a in zip(srcs, arrays):
+        write_class_wav(src, a)
+    return srcs, arrays, lengths, sum(a.nbytes for a in arrays) / 1e6
+
+
 def phase_batch_files(params, td: Path, smi: str, rates7: dict) -> dict:
-    """Phase 8's batch of WAVs (BASELINE.json config 4): MF_FILES files of
-    the three classes in turn, each of a length uniform in
-    1..MF_MAX_SAMPLES and made from its own seed, and the MF_FIXED
-    lengths.  Returns the WAVs (left in `td`), their samples, lengths,
+    """Phase 8's batch of WAVs (BASELINE.json config 4, write_batch_wavs)
+    through the batch entry points, each against its single-file or
+    in-memory counterpart and the inputs.  Returns the WAVs (left in `td`), their samples, lengths,
     archives and statistics, and their MB of int16."""
     import x3_tpu_torch as xt
     from x3_tpu_torch import files, multifile
 
     S = params.samples_per_frame
     header = xt.build_archive_header(SAMPLE_RATE, params)
-    rng = np.random.default_rng(20261020)
-    lengths = [int(n) for n in rng.integers(1, MF_MAX_SAMPLES + 1, MF_FILES)] + list(MF_FIXED)
-    arrays = [make_class_corpus(CLASSES[k % 3], max(1, -(-n // S)), S, seed=1000 + k)[:n]
-              for k, n in enumerate(lengths)]
-    srcs = [td / f"mf{k}.wav" for k in range(len(arrays))]
+    srcs, arrays, lengths, mb = write_batch_wavs(params, td)
     x3as = [td / f"mf{k}.x3a" for k in range(len(arrays))]
     backs = [td / f"mf{k}.back.wav" for k in range(len(arrays))]
-    for src, a in zip(srcs, arrays):
-        write_class_wav(src, a)
-    mb = sum(a.nbytes for a in arrays) / 1e6
     n_frames = sum(-(-n // S) for n in lengths)
 
     # The batch against one wav_to_x3a / x3a_to_wav a file (timed too).
@@ -1554,7 +1568,76 @@ def phase_x3m(params, td: Path, smi: str) -> float:
     log(f"# phase 8 x3m damage: a payload byte of channel {c} frame {fi}: x3m_to_wav raises "
         f"{type(raised).__name__} ({raised}); verify_x3m FAILED with {rep['frame_errors']} frame error, "
         f"in channel {c} alone (reason: {rep.get('reason')})")
+    restore_bytes(paths[c], pos, bytes([byte]))
+    x3m_damage_pair(mpath, paths, indexes, src, back, S)
     return r["growth"]
+
+
+def damage_frame(path, payload_off: int, payload_len: int, kind: str) -> tuple[int, bytes]:
+    """Damage one frame of an archive file in place: "crc" flips a payload
+    byte (its payload CRC then fails), "decode" makes its first block a BFP
+    block of 3 bits and re-stamps the header's payload CRC (it then fails
+    to decode).  Returns (offset, bytes) that restore it."""
+    from x3_tpu_torch.ops.crc import crc16
+
+    at = payload_off - 20
+    with open(path, "r+b") as f:
+        f.seek(at)
+        old = f.read(20 + payload_len)
+        new = bytearray(old)
+        if kind == "crc":
+            new[20 + 10] ^= 0x10
+        else:
+            new[20 + 2] = 0b00_0010_00
+            new[18:20] = crc16(bytes(new[20:])).to_bytes(2, "big")
+        f.seek(at)
+        f.write(new)
+    return at, old
+
+
+def restore_bytes(path, at: int, data: bytes) -> None:
+    with open(path, "r+b") as f:
+        f.seek(at)
+        f.write(data)
+
+
+def x3m_damage_pair(mpath, paths, indexes, src, back, S: int) -> None:
+    """Phase 8's x3m damage pair at full size: a payload CRC mismatch in
+    channel 2 of window 1 with a decode error in channel 0 of window 2,
+    then the reverse.  Each must raise the window-1 frame's error with
+    x3_tpu's message, after x3m_to_wav wrote window 0, equal to the input,
+    into a WAV with its header patched."""
+    from x3_tpu_torch import multichannel
+    from x3_tpu_torch.engine import DECODE_BATCH_FRAMES
+    from x3_tpu_torch.errors import X3Error
+
+    win = DECODE_BATCH_FRAMES
+    first, later = (2, win + win // 2), (0, 2 * win + win // 2)
+    for kinds, want in ((("crc", "decode"), ("FrameHeaderInvalidPayloadCRC", f"frame {first[1]} payload CRC mismatch")),
+                        (("decode", "crc"), ("FrameDecodeInvalidBPF", f"frame {first[1]} failed to decode"))):
+        saved = []
+        for (c, fi), kind in zip((first, later), kinds):
+            off, h = indexes[c][fi]
+            saved.append((paths[c], *damage_frame(paths[c], off, h.payload_len, kind)))
+        try:
+            multichannel.x3m_to_wav(mpath, back, device=DEV)
+            got = None
+        except X3Error as e:
+            got = (type(e).__name__, str(e))
+        finally:
+            for p, at, data in saved:
+                restore_bytes(p, at, data)
+        require(got == want, f"x3m_to_wav with {kinds[0]} in channel {first[0]} frame {first[1]} and {kinds[1]} "
+                             f"in channel {later[0]} frame {later[1]}: raised {got}, want {want}")
+        with wave.open(str(back), "rb") as w, wave.open(str(src), "rb") as w_src:
+            shape = (w.getnchannels(), w.getnframes())
+            same = w.readframes(win * S) == w_src.readframes(win * S)
+        require(shape == (X3M_CHANNELS, win * S) and same,
+                f"x3m_to_wav's partial WAV after {want[0]}: {shape}, want window 0 of the input")
+        log(f"# phase 8 x3m damage pair: {kinds[0]} in channel {first[0]} frame {first[1]} (window 1) and "
+            f"{kinds[1]} in channel {later[0]} frame {later[1]} (window 2): x3m_to_wav raises {got[0]} "
+            f"({got[1]}); the WAV holds window 0 ({win * S} samples a channel), equal to the input")
+        back.unlink()
 
 
 def phase_batch(params, kernels: dict, smi: str, rates7: dict, td: Path) -> dict:
@@ -1568,6 +1651,11 @@ def phase_batch(params, kernels: dict, smi: str, rates7: dict, td: Path) -> dict
     launches = {k: mod.launch_count for k, mod in kernels.items()}
     for k, n in launches.items():
         require(n > 0, f"kernel {k} was not launched by phase 8")
+    # Every decode call checks its CRCs in it (one K1 beside each K3) and
+    # every encode batch one K1 beside its K2: no CRC pass of its own.
+    require(launches["crc16"] <= launches["encode"] + launches["decode"],
+            f"phase 8 launched K1 {launches['crc16']} times, more than K2 + K3 "
+            f"({launches['encode']} + {launches['decode']})")
     log(f"# phase 8 launches: {launches}; {time.perf_counter() - t0:.1f} s")
     return batch
 
@@ -2000,12 +2088,13 @@ def profile_call(name: str, label: str, fn, top: int):
 
 
 def stream_waits(fn) -> dict:
-    """Seconds the calling thread spends in fn() (an x3a_to_wav call)
-    waiting on x3a_to_wav's read-ahead thread for the next chunk, on the
-    events behind the decode's read-backs, and on the WAV writer's queue
-    (its write and its closing drain): each timed around the call on this
-    thread alone, by wrapping it for the duration."""
-    from x3_tpu_torch import files
+    """Seconds the calling thread spends in fn() (a decode to WAV or to
+    memory) waiting on the read-ahead thread of files or multifile for the
+    next chunk or batch, on the events behind the decode's read-backs, and
+    on the WAV writers' queues (their writes and closing drains): each
+    timed around the call on this thread alone, by wrapping it for the
+    duration."""
+    from x3_tpu_torch import files, multifile
     from x3_tpu_torch.models import decoder
     from x3_tpu_torch.utils import io as xio
 
@@ -2037,14 +2126,17 @@ def stream_waits(fn) -> dict:
         finally:
             it.close()
 
-    saved = (files.prefetch_iter, decoder.wait, xio.AsyncWriter.write, xio.AsyncWriter.close)
-    files.prefetch_iter, decoder.wait = timed_prefetch, timed("event", decoder.wait)
+    saved = (files.prefetch_iter, multifile.prefetch_iter, decoder.wait, xio.AsyncWriter.write,
+             xio.AsyncWriter.close)
+    files.prefetch_iter = multifile.prefetch_iter = timed_prefetch
+    decoder.wait = timed("event", decoder.wait)
     xio.AsyncWriter.write = timed("writer", xio.AsyncWriter.write)
     xio.AsyncWriter.close = timed("writer", xio.AsyncWriter.close)
     try:
         fn()
     finally:
-        files.prefetch_iter, decoder.wait, xio.AsyncWriter.write, xio.AsyncWriter.close = saved
+        (files.prefetch_iter, multifile.prefetch_iter, decoder.wait, xio.AsyncWriter.write,
+         xio.AsyncWriter.close) = saved
     return waits
 
 
@@ -2175,6 +2267,65 @@ def phase_profile(params, top: int = 12) -> None:
                 p.unlink()
 
 
+def profile_batch(params, top: int = 12) -> None:
+    """--profile: phase 8's WAVs (write_batch_wavs) through
+    x3a_to_wav_batch and decode_streams, and its 4-channel capture through
+    x3m_to_wav.  For each path: the wall and MB/s of 3 warm calls
+    (unprofiled), K1 and K3 launches of one call, torch.profiler's device
+    rows and the device idle share of one call, cProfile's host rows of
+    another, and the main thread's waits in one more (stream_waits); then
+    x3m_to_wav's peak RSS growth in a fresh process.  Each output is held
+    to the input.  It drives the entry points alone, so that it runs on a
+    checkout of another commit too."""
+    from x3_tpu_torch import multichannel, multifile
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda
+
+    with tempfile.TemporaryDirectory(prefix="x3_profile_batch_") as tmp:
+        td = Path(tmp)
+        srcs, arrays, lengths, mb = write_batch_wavs(params, td)
+        x3as = [td / f"mf{k}.x3a" for k in range(len(srcs))]
+        backs = [td / f"mf{k}.back.wav" for k in range(len(srcs))]
+        multifile.wav_to_x3a_batch(srcs, x3as, params, device=DEV)
+        archives = [x.read_bytes() for x in x3as]
+        cap, back = td / "quad.wav", td / "quad.back.wav"
+        n = write_capture_wav(cap, params, X3M_FRAMES, X3M_TAIL, seed=400)
+        mpath = multichannel.wav_to_x3m(cap, td / "quad", params, device=DEV)
+        write_capture_wav(td / "quad2.wav", params, 2, 0, seed=300)
+        small = multichannel.wav_to_x3m(td / "quad2.wav", td / "quad2", params, device=DEV)
+        cap_mb = X3M_CHANNELS * n * 2 / 1e6
+
+        def streams_exact():
+            return all(np.array_equal(d, a) for (d, _), a in zip(multifile.decode_streams(archives, device=DEV),
+                                                                 arrays))
+
+        runs = (("x3a_to_wav_batch", mb, lambda: multifile.x3a_to_wav_batch(x3as, backs, device=DEV),
+                 lambda: all(map(same_wav, backs, srcs))),
+                ("decode_streams", mb, lambda: multifile.decode_streams(archives, device=DEV), streams_exact),
+                ("x3m_to_wav", cap_mb, lambda: multichannel.x3m_to_wav(mpath, back, device=DEV),
+                 lambda: same_file(back, cap)))
+        for label, mbs, fn, exact in runs:
+            fn()  # warm-up
+            walls = [timed_call(fn)[0] for _ in range(3)]
+            crc_cuda.launch_count = decode_cuda.launch_count = 0
+            fn()
+            k1, k3 = crc_cuda.launch_count, decode_cuda.launch_count
+            require(exact(), f"profile {label}: the output differs from the input")
+            log(f"# profile batch {label}: " + ", ".join(f"{t * 1e3:.3f} ms ({mbs / t:.1f} MB/s)" for t in walls)
+                + f" over {mbs:.2f} MB of int16, unprofiled walls of 3 warm calls; one call launches K1 {k1}, "
+                  f"K3 {k3} times")
+            profile_call("batch", label, fn, top)
+            t0 = time.perf_counter()
+            waits = stream_waits(fn)
+            wall = time.perf_counter() - t0
+            log(f"# profile batch {label} waits of the main thread in a wall of {wall * 1e3:.3f} ms: on the "
+                f"reader {waits['reader'] * 1e3:.3f} ms, on the read-back events {waits['event'] * 1e3:.3f} ms, "
+                f"on the WAV writers' queues {waits['writer'] * 1e3:.3f} ms")
+        r = rss_run("x3m", mpath, back, (small, td / "quad2.warm.wav"))
+        require(same_file(back, cap), "profile x3m_to_wav in the measuring process differs from the input WAV")
+        log(f"# profile batch x3m_to_wav in a fresh process: {cap_mb / r['times'][0]:.1f} MB/s, peak RSS growth "
+            f"{r['growth']:.1f} MB ({r['how']}; bound {cap_mb / 2:.1f} MB)")
+
+
 def main() -> int:
     import torch
 
@@ -2203,8 +2354,10 @@ def main() -> int:
         f"{_build.build_all():.1f} s ({_build.build_dir()})")
 
     if "--profile" in sys.argv[1:]:
-        profile_route_kernels(params)
-        phase_profile(params)
+        if sys.argv[sys.argv.index("--profile") + 1:][:1] != ["batch"]:
+            profile_route_kernels(params)
+            phase_profile(params)
+        profile_batch(params)
         return 0
 
     # Phase 3: kernels against their plain versions.

@@ -480,6 +480,75 @@ def test_x3m_on_cuda_matches_cpu(cuda, tmp_path):
     assert got["cpu"]["back.wav"] == src.read_bytes()
 
 
+def _flip_payload_byte(path, frame: int) -> None:
+    """A payload byte of `frame` of an archive, flipped: its CRC then fails."""
+    from x3_tpu_torch import archive
+
+    data = bytearray(path.read_bytes())
+    _, hs = archive.parse_archive_header(bytes(data))
+    ix = archive.index_frames_in_memory(bytes(data), hs)
+    data[int(ix.offsets[frame]) + 1] ^= 0x10
+    path.write_bytes(bytes(data))
+
+
+def _outcome(fn):
+    try:
+        return "ok", fn()
+    except Exception as e:  # noqa: BLE001 - the class and message are what is compared
+        return "raise", (type(e).__name__, str(e))
+
+
+@pytest.mark.parametrize("damage", ["clean", "crc"])
+def test_batch_decodes_on_cuda_match_cpu(cuda, tmp_path, damage):
+    """x3a_to_wav_batch, decode_streams and x3m_to_wav on the card give
+    what they give on the CPU: outputs, or the raised class and message and
+    the WAVs written before it (a payload byte of archive 4's frame 9, and
+    of channel 2's frame 5).  Each decode call launches K3 and K1 once
+    (the CRC check fused into it)."""
+    from x3_tpu_torch import multichannel, multifile
+    from x3_tpu_torch.ops import crc_cuda, decode_cuda
+    from x3_tpu_torch.utils.wav import write_wav
+
+    params = GEOMETRIES[0]
+    S = params.samples_per_frame
+    rng = np.random.default_rng(25)
+    lengths = [7 * S + 5, 0, 1, 3 * S, 12 * S + 17]
+    srcs = [tmp_path / f"in{k}.wav" for k in range(len(lengths))]
+    for src, n in zip(srcs, lengths):
+        write_wav(src, _signal(rng, n), 96000)
+    x3as = [tmp_path / f"a{k}.x3a" for k in range(len(srcs))]
+    multifile.wav_to_x3a_batch(srcs, x3as, params, device="cpu")
+    n = 9 * S + 11
+    chans = np.stack([_signal(rng, n) for _ in range(3)])
+    mpath = multichannel.encode_multichannel(chans, 48000, tmp_path / "tri", params, device="cpu")
+    if damage == "crc":
+        _flip_payload_byte(x3as[4], 9)
+        _flip_payload_byte(tmp_path / "tri.ch2.x3a", 5)
+    got = {}
+    for dev in ("cpu", cuda):
+        crc_cuda.launch_count = decode_cuda.launch_count = 0
+        tag = str(dev).replace(":", "")
+        backs = [tmp_path / f"{tag}{k}.wav" for k in range(len(srcs))]
+        got[tag] = (
+            _outcome(lambda: multifile.x3a_to_wav_batch(x3as, backs, 4, device=dev)),
+            [b.read_bytes() if b.exists() else None for b in backs],
+            _outcome(lambda: [x.tobytes() for x, _ in multifile.decode_streams(
+                [p.read_bytes() for p in x3as], 4, device=dev)]),
+            _outcome(lambda: multichannel.x3m_to_wav(mpath, tmp_path / f"{tag}.x3m.wav", batch_frames=4,
+                                                     device=dev)),
+            (tmp_path / f"{tag}.x3m.wav").read_bytes(),
+        )
+        if dev != "cpu":
+            assert crc_cuda.launch_count == decode_cuda.launch_count > 0
+    assert got["cpu"] == got["cuda"]
+    if damage == "clean":
+        assert got["cpu"][1] == [s.read_bytes() for s in srcs]
+        assert got["cpu"][3] == ("ok", 3)
+    else:
+        assert got["cpu"][0] == ("raise", ("FrameHeaderInvalidPayloadCRC", "archive 4 frame 9 payload CRC mismatch"))
+        assert got["cpu"][3] == ("raise", ("FrameHeaderInvalidPayloadCRC", "frame 5 payload CRC mismatch"))
+
+
 def _cuda_meshes():
     """[cuda:0] * 2, and every visible card where there are two or more."""
     from x3_tpu_torch.parallel.mesh import make_mesh

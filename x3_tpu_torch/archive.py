@@ -2,8 +2,10 @@
 the archive header build and parse, and the frame walk with its optional
 sync-word rescue, which skips a corrupt frame instead of stopping; over
 bytes in memory and over an open file (headers read with seeks, so memory
-stays bounded on any archive size); the in-memory frame index of the
-chunked file decode (index_frames); and the host payload-CRC check."""
+stays bounded on any archive size); the in-memory frame index
+(index_frames), the walker's errors at the bytes where it stops
+(check_tail), and the index of a whole archive file in sequential reads
+(index_frames_file); and the host payload-CRC check."""
 
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from .errors import (
     FrameLength,
     MoreThanOneChannel,
 )
-from .ops.crc import crc16, crc16_many
+from .ops.crc import crc16, crc16_many, crc16_pairs
 from .params import Parameters, X3aSpec
 from .utils.xmlmeta import build_xml, parse_xml
 
@@ -143,8 +145,8 @@ def index_frames(blob, start: int = 0, max_frames: int | None = None):
     than "x3", a bad header CRC, a channels byte above 1, a payload length
     of FRAME_MAX_LENGTH or more, or a payload that runs past the blob, or
     after max_frames frames.  The offset chain is followed in Python over
-    the length fields; then every header's CRC is checked at once and the
-    index cut at the first mismatch.
+    the length fields; then every header's CRC is checked at once
+    (ops.crc.crc16_pairs) and the index cut at the first mismatch.
 
     blob: bytes, bytearray or a contiguous uint8 array."""
     arr = np.frombuffer(blob, dtype=np.uint8)
@@ -162,12 +164,118 @@ def index_frames(blob, start: int = 0, max_frames: int | None = None):
     at = np.asarray(heads, dtype=np.int64)
     rows = arr[at[:, None] + np.arange(hl)].astype(np.int64)  # [N, 20]
     stored = (rows[:, constants.P_HEADER_CRC] << 8) | rows[:, constants.P_HEADER_CRC + 1]
-    bad = crc16_many(rows[:, : constants.P_HEADER_CRC], np.full(len(at), constants.P_HEADER_CRC)) != stored
+    bad = crc16_pairs(rows[:, : constants.P_HEADER_CRC]) != stored
     k = int(np.argmax(bad)) if bad.any() else len(at)
     rows = rows[:k]
     samples = (rows[:, constants.P_SAMPLES] << 8) | rows[:, constants.P_SAMPLES + 1]
     plens = (rows[:, constants.P_PAYLOAD_SIZE] << 8) | rows[:, constants.P_PAYLOAD_SIZE + 1]
     return at[:k] + hl, samples.astype(np.int32), plens.astype(np.int32)
+
+
+# The most bytes a frame spans: a header and the longest payload.
+MAX_FRAME_BYTES = constants.FRAME_HEADER_LENGTH + constants.FRAME_MAX_LENGTH
+
+
+def check_tail(tail, end: int, eof: bool) -> None:
+    """Raise walk_frames' error, if it has one, for `tail`: the bytes from
+    the header at which index_frames stopped up to file offset `end`.
+
+    At the end of the stream (eof), at most a header's worth of bytes ends
+    the walk silently; more raises what the walker raises there: the
+    header's class (read_frame_header: header CRC, key, MoreThanOneChannel,
+    FrameLength) or, for a valid header, FrameHeaderInvalidPayloadLen with
+    the walker's message.  Before the end, a tail longer than any frame
+    (20 + FRAME_MAX_LENGTH bytes) can only start at a bad header, whose
+    class is raised; a shorter one may be a frame that the next read
+    completes, and nothing is raised."""
+    hl = constants.FRAME_HEADER_LENGTH
+    if len(tail) <= (hl if eof else MAX_FRAME_BYTES):
+        return
+    header = read_frame_header(bytes(tail[:hl]))
+    if not eof:  # pragma: no cover - a valid header's frame fits the tail
+        raise FrameHeaderInvalidPayloadLen(f"frame at {end - len(tail)}: unindexable valid header")
+    raise FrameHeaderInvalidPayloadLen(
+        f"frame at {end - len(tail)}: payload {header.payload_len} B overruns "
+        f"the remaining {len(tail) - hl} B"
+    )
+
+
+# Sequential read size of index_frames_file (x3_tpu's _NATIVE_CHUNK_BYTES
+# was 4 MB; files._CHUNK_BYTES, the chunk of x3a_to_wav, is this size).
+CHUNK_BYTES = 8 << 20
+
+
+@dataclasses.dataclass
+class FrameIndex:
+    """The frames of an archive, in order, as numpy arrays: payload offsets
+    int64 (in the archive), sample counts int32, payload lengths int32 and
+    stored payload CRC16s int64; about 18 bytes a frame."""
+
+    offsets: np.ndarray
+    n_samples: np.ndarray
+    payload_lens: np.ndarray
+    crcs: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.offsets)
+
+    def __getitem__(self, cut: slice) -> "FrameIndex":
+        return FrameIndex(self.offsets[cut], self.n_samples[cut], self.payload_lens[cut], self.crcs[cut])
+
+    @classmethod
+    def concat(cls, parts) -> "FrameIndex":
+        parts = list(parts)
+        return cls(*(np.concatenate([getattr(p, k) for p in parts]) if parts else np.zeros(0, t)
+                     for k, t in (("offsets", np.int64), ("n_samples", np.int32),
+                                  ("payload_lens", np.int32), ("crcs", np.int64))))
+
+
+def index_blob(blob, start: int = 0, base: int = 0) -> tuple[FrameIndex, int]:
+    """index_frames of an in-memory frame stream with the stored payload
+    CRCs: (FrameIndex with offsets plus `base`, the blob offset where the
+    index stopped)."""
+    arr = np.frombuffer(blob, dtype=np.uint8)
+    offs, ns, lens = index_frames(arr, start)
+    crcs = (arr[offs - 2].astype(np.int64) << 8) | arr[offs - 1]
+    end = int(offs[-1] + lens[-1]) if len(offs) else start
+    return FrameIndex(offs + base, ns, lens, crcs), end
+
+
+def index_frames_in_memory(data, start: int) -> FrameIndex:
+    """The frames of an in-memory archive from byte `start`: walk_frames'
+    entries without resync, and its errors (check_tail)."""
+    index, end = index_blob(data, start)
+    check_tail(np.frombuffer(data, dtype=np.uint8)[end:], len(data), eof=True)
+    return index
+
+
+def index_frames_file(f, start: int) -> FrameIndex:
+    """The frames of an open archive file from byte `start`, read in
+    sequential reads of CHUNK_BYTES into one plain host buffer and indexed
+    in memory (index_frames), a frame that straddles two reads carried
+    into the next.  Its entries are walk_frames_file's without resync, and
+    it raises the walker's class and message at the same frame
+    (check_tail); a bad header raises once a frame's worth of bytes past it
+    is read, before the rest of the file."""
+    f.seek(0, 2)
+    n = f.tell()
+    front = MAX_FRAME_BYTES  # room for the carry
+    buf = np.empty(front + max(1, min(CHUNK_BYTES, n - start)), np.uint8)
+    view = memoryview(buf)
+    parts, pos, carry = [], start, 0  # pos: the file offset of buf[0]
+    f.seek(start)
+    while True:
+        got = f.readinto(view[carry : carry + len(buf) - front]) if pos + carry < n else 0
+        blob = buf[: carry + got]
+        eof = not got or pos + len(blob) >= n
+        index, end = index_blob(blob, 0, pos)
+        parts.append(index)
+        check_tail(blob[end:], pos + len(blob), eof)
+        if eof:
+            return FrameIndex.concat(parts)
+        carry = len(blob) - end
+        buf[:carry] = blob[end:]  # at most `front` bytes (check_tail)
+        pos += end
 
 
 def find_sync(data: bytes, start: int) -> int:

@@ -27,7 +27,7 @@ import torch
 from . import archive, constants
 from .device import resolve_device
 from .engine import resolve_batch_frames, resolve_engine
-from .errors import FrameHeaderInvalidPayloadCRC, FrameHeaderInvalidPayloadLen, X3Error, decode_error
+from .errors import FrameHeaderInvalidPayloadCRC, X3Error, decode_error
 from .models.decoder import decode_frames_batch, decode_frames_flat, decode_frames_indexed
 from .models.encoder import EncodeResult
 from .models.staging import BufferPool, host_empty
@@ -123,8 +123,8 @@ def _batches(walker, batch_frames: int):
 # each other and up to 1.6x faster than 4 MB on music, whose 4 MB chunks
 # hold about 270 frames (a K3 launch costs about 1.1 ms whatever the
 # lanes); 8 MB grows the peak RSS about half as much as 16 MB.
-_CHUNK_BYTES = 8 << 20
-_CHUNK_FRONT = constants.FRAME_HEADER_LENGTH + constants.FRAME_MAX_LENGTH  # room for the carry
+_CHUNK_BYTES = archive.CHUNK_BYTES
+_CHUNK_FRONT = archive.MAX_FRAME_BYTES  # room for the carry
 
 
 def _x3a_to_wav_stream(f, wout, start: int, params: Parameters, batch_frames: int, device) -> int:
@@ -138,12 +138,10 @@ def _x3a_to_wav_stream(f, wout, start: int, params: Parameters, batch_frames: in
     next.  Returns the frame errors (0, or 1 at the first frame that fails
     to decode, as the reference stops there).
 
-    The walker's errors: the tail that the index stops at is parsed again
-    with archive.read_frame_header, which raises the walker's class
-    (header CRC, key, FrameLength, MoreThanOneChannel); a payload that runs
-    past the end raises FrameHeaderInvalidPayloadLen with the walker's
-    message; at most a header's worth of trailing bytes ends the decode
-    silently.
+    The walker's errors: archive.check_tail raises them at the bytes the
+    index stops at (the header's class, or FrameHeaderInvalidPayloadLen
+    with the walker's message for a payload that runs past the end); at
+    most a header's worth of trailing bytes ends the decode silently.
 
     Each chunk is read into the back of one of three host buffers (pinned
     for a CUDA device), whose front holds the carry, so the payload bytes
@@ -152,7 +150,7 @@ def _x3a_to_wav_stream(f, wout, start: int, params: Parameters, batch_frames: in
     event behind the chunk's uploads."""
     f.seek(0, 2)
     n = f.tell()
-    front, hl = _CHUNK_FRONT, constants.FRAME_HEADER_LENGTH
+    front = _CHUNK_FRONT
     size = front + max(1, min(_CHUNK_BYTES, n - start))
     pool = BufferPool(host_empty(size, torch.uint8, device) for _ in range(3))
 
@@ -187,8 +185,8 @@ def _x3a_to_wav_stream(f, wout, start: int, params: Parameters, batch_frames: in
             blob = blob_t.numpy()
             if not len(blob):
                 return 0
-            offs, ns, lens = archive.index_frames(blob)
-            want = (blob[offs - 2].astype(np.int64) << 8) | blob[offs - 1]  # stored payload CRCs
+            index, end = archive.index_blob(blob)
+            offs, ns, lens, want = index.offsets, index.n_samples, index.payload_lens, index.crcs
             for s in range(0, len(offs), batch_frames):
                 cut = slice(s, s + batch_frames)
                 samples, errs, crc_ok = decode_frames_indexed(blob_t, offs[cut], ns[cut], lens[cut], params,
@@ -203,27 +201,14 @@ def _x3a_to_wav_stream(f, wout, start: int, params: Parameters, batch_frames: in
                     return 1
                 wout.write(samples)
             base += len(offs)
-            carry = blob[int(offs[-1] + lens[-1]) if len(offs) else 0 :].copy()
+            carry = blob[end:].copy()
             if buf is not None:
                 pool.release(buf)
+            # The walker's error where the index stopped, if any; otherwise
+            # the carry fits the next buffer's front.
+            archive.check_tail(carry, pos, eof)
             if eof:
-                if len(carry) <= hl:
-                    return 0
-                header = archive.read_frame_header(carry[:hl].tobytes())  # raises the walker's class
-                raise FrameHeaderInvalidPayloadLen(
-                    f"frame at {n - len(carry)}: payload {header.payload_len} B overruns "
-                    f"the remaining {len(carry) - hl} B"
-                )
-            if len(carry) > front:
-                # No frame spans this much (a payload is shorter than
-                # FRAME_MAX_LENGTH): the header the index stopped at is bad.
-                # x3_tpu raises here one chunk later, when no frame was
-                # indexed; the error is the same, and the carry always
-                # fits the buffer's front.
-                archive.read_frame_header(carry[:hl].tobytes())
-                raise FrameHeaderInvalidPayloadLen(  # pragma: no cover - defensive
-                    f"frame at {n - len(carry)}: unindexable valid header"
-                )
+                return 0
     finally:
         pool.close()  # wakes a reader waiting for a buffer
         reads.close()

@@ -209,7 +209,7 @@ def decode_frames_flat(payloads, n_samples, params: Parameters | None = None,
 
 
 def decode_frames_indexed(data, offsets, n_samples, payload_lens, params: Parameters | None = None,
-                          check_crcs=None, device="cuda", mesh=None):
+                          check_crcs=None, device="cuda", mesh=None, *, arrange=None):
     """Decode the frames whose payloads lie in one host buffer `data` at
     `offsets`, of `payload_lens` bytes, with their sample counts (the
     counterpart of x3_tpu.native.decode_frames_mt over an index_frames
@@ -224,7 +224,10 @@ def decode_frames_indexed(data, offsets, n_samples, payload_lens, params: Parame
     data: a host uint8 tensor (pinned for a CUDA device, to copy without
       blocking), or bytes, bytearray or a uint8 array.
     mesh: a models.sharding.Mesh of `device`'s type to shard the batch
-      over."""
+      over.
+    arrange: a function of the compacted samples (a tensor on the mesh's
+      first device) whose result is read back in their place, such as the
+      interleave of multichannel.x3m_to_wav; not called for no frames."""
     mesh = check_mesh(mesh, device)
     params = params or Parameters()
     f = len(offsets)
@@ -234,7 +237,7 @@ def decode_frames_indexed(data, offsets, n_samples, payload_lens, params: Parame
     out, err, crc, ns = _walk(_host_bytes(data), offsets, payload_lens, n_samples, params,
                               check_crcs is not None, mesh)
     flat = compact_frames(out, ns[:f], int(np.sum(n_samples, dtype=np.int64)))
-    *head, host = _read_back(f, err, crc, check_crcs, flat)
+    *head, host = _read_back(f, err, crc, check_crcs, flat if arrange is None else arrange(flat))
     return (host, *head)
 
 

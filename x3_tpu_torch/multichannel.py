@@ -7,17 +7,21 @@ names them; the archives stay plain, individually decodable X3 files.
 The manifest's bytes are x3_tpu's.
 
 All channels' frames share device batches during encode
-(multifile.encode_streams: K2 + K1 on "cuda"); decode reads each channel
-through files.X3aReader (K3 + K1).  device="cpu" runs the plain PyTorch
-versions."""
+(multifile.encode_streams: K2 + K1 on "cuda") and, in x3m_to_wav, during
+decode (multifile.decode_runs: K3 + K1, one call a window for every
+channel); decode_multichannel reads each channel through files.X3aReader.
+device="cpu" runs the plain PyTorch versions."""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import wave
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from .device import resolve_device
 from .errors import X3Error
@@ -125,48 +129,131 @@ def x3m_to_wav(manifest_path, wav_path, engine: str = "auto", batch_frames: int 
                device="cuda") -> int:
     """Manifest -> multi-channel WAV.  Returns the channel count.
 
-    Streaming: each channel reads through files.X3aReader and the WAV is
-    written in frame-aligned sample windows of one decode batch, so peak
-    memory is O(channels x batch) whatever the capture's length."""
+    Streaming, in x3_tpu's windows of batch_frames x samples_per_frame
+    samples a channel (the first channel's Parameters): each channel is
+    indexed in sequential reads (archive.index_frames_file), then each
+    window's frames that cover it (X3aReader.read_samples' cover, so frames
+    of any length work) go, one run a channel and one read a run, through
+    one decode call for all channels (multifile.decode_runs; one a
+    Parameters where channels differ), are interleaved to [n, C] on the
+    device, read back once and written by the WAV's writer thread.  Peak
+    memory is O(channels x batch) whatever the capture's length.
+
+    The errors are x3_tpu's, in its order: each channel's header and walk,
+    then the sample rates, counts and the manifest's count, before any
+    decode; then by window, channel and frame, a frame's payload CRC
+    (FrameHeaderInvalidPayloadCRC "frame {i} payload CRC mismatch") before
+    its decode ("frame {i} failed to decode"), after every earlier window
+    was written and the WAV's header patched."""
+    from . import archive
     from .engine import resolve_batch_frames, resolve_engine
-    from .files import X3aReader
+    from .models.sharding import check_mesh
+    from .multifile import DecodeBatch, decode_runs, file_span_reader
+    from .utils.wav import WavWriter
 
     device = resolve_device(device)
     manifest, mpath = _load_manifest(manifest_path)
     rate = manifest["sample_rate"]
-    readers = []
+    engine = resolve_engine(engine)
+    handles = []
     try:
+        specs, indexes = [], []
         for name in manifest["files"]:
-            readers.append(X3aReader(mpath.parent / name, engine=engine, batch_frames=batch_frames,
-                                     device=device))
-        for r in readers:
-            if r.spec.sample_rate != rate:
+            f = open(mpath.parent / name, "rb")
+            handles.append(f)
+            spec, hs = archive.read_archive_header_file(f)
+            specs.append(spec)
+            indexes.append(archive.index_frames_file(f, hs))
+        for spec in specs:
+            if spec.sample_rate != rate:
                 raise X3Error("manifest/archive sample rate mismatch")
-        total = readers[0].n_samples
-        for r in readers[1:]:
-            if r.n_samples != total:
+        sample_offsets = [np.concatenate([[0], np.cumsum(ix.n_samples, dtype=np.int64)]) for ix in indexes]
+        total = int(sample_offsets[0][-1])
+        for off in sample_offsets[1:]:
+            if off[-1] != total:
                 raise X3Error("channel archives disagree on sample count")
         want = manifest.get("samples")
         if want is not None and total != want:
             raise X3Error(f"decoded {total} samples, manifest says {want}")
-        # One decode batch of whole frames per window: read_samples never
-        # splits a cached batch, so each payload is decoded exactly once.
-        bf = resolve_batch_frames(batch_frames, resolve_engine(engine), decode=True)
-        win = max(1, bf) * readers[0].spec.params.samples_per_frame
-        with wave.open(str(wav_path), "wb") as w:
-            w.setnchannels(len(readers))
-            w.setsampwidth(2)
-            w.setframerate(rate)
-            for start in range(0, total, win):
-                n = min(win, total - start)
-                # [n, C]: interleaved as the WAV stores it, handed to the
-                # writer without another copy.
-                block = np.stack([r.read_samples(start, n) for r in readers], axis=1)
-                w.writeframes(block.astype("<i2", copy=False))
-        return len(readers)
+        bf = resolve_batch_frames(batch_frames, engine, decode=True)
+        win = max(1, bf) * specs[0].params.samples_per_frame
+
+        # A window's batches: its channels grouped by Parameters (one
+        # group as a rule), each channel's frames that cover the window one
+        # run.
+        batches = []
+        for start in range(0, total, win):
+            n = min(win, total - start)
+            groups: dict = {}
+            for c, (spec, off) in enumerate(zip(specs, sample_offsets)):
+                f0 = int(np.searchsorted(off, start, side="right")) - 1
+                f1 = int(np.searchsorted(off, start + n, side="left"))
+                groups.setdefault(spec.params, []).append((c, f0, f1, start - int(off[f0])))
+            for g, (params, members) in enumerate(groups.items()):
+                batches.append(DecodeBatch(
+                    params,
+                    np.concatenate([np.full(f1 - f0, c, np.int64) for c, f0, f1, _ in members]),
+                    np.concatenate([np.arange(f0, f1, dtype=np.int64) for _, f0, f1, _ in members]),
+                    archive.FrameIndex.concat(indexes[c][f0:f1] for c, f0, f1, _ in members),
+                    tag=_Window(n, [c for c, *_ in members], [skip for *_, skip in members],
+                                g == len(groups) - 1)))
+
+        def interleave(batch, flat):
+            # [n, channels] on the device: each channel's n samples from
+            # `skip` into its run.
+            n, skips = batch.tag.n, batch.tag.skips
+            heads = np.concatenate([[0], np.cumsum(batch.index.n_samples, dtype=np.int64)])
+            return torch.stack([flat[int(heads[a]) + skip : int(heads[a]) + skip + n]
+                                for (_, a, _), skip in zip(batch.runs(), skips)], dim=1)
+
+        mesh = check_mesh(None, device)
+        with WavWriter(wav_path, rate, channels=len(specs)) as wout, contextlib.closing(
+                decode_runs(batches, file_span_reader(handles), mesh, interleave)) as decoded:
+            window = []
+            for batch, block, err, crc_ok in decoded:
+                window.append((batch, block, err, crc_ok))
+                if not batch.tag.last:
+                    continue
+                _raise_first_bad(window, len(specs))
+                if len(window) == 1:
+                    wout.write(block)
+                else:
+                    out = np.empty((batch.tag.n, len(specs)), np.int16)
+                    for b, blk, _, _ in window:
+                        out[:, b.tag.channels] = blk
+                    wout.write(out)
+                window = []
+        return len(specs)
     finally:
-        for r in readers:
-            r.close()
+        for f in handles:
+            f.close()
+
+
+class _Window(NamedTuple):
+    """A decode batch's part of an x3m_to_wav window."""
+
+    n: int  # the window's samples a channel
+    channels: list  # the batch's channels
+    skips: list  # where each channel's window starts in its run
+    last: bool  # the window's last batch
+
+
+def _raise_first_bad(window, channels: int) -> None:
+    """Raise the error of a window's first bad frame, by channel, then
+    frame, a frame's payload CRC before its decode (X3aReader.read_samples'
+    order): window holds each of its batches' (batch, samples, err,
+    crc_ok)."""
+    from .errors import FrameHeaderInvalidPayloadCRC, decode_error
+
+    for c in range(channels):
+        for batch, _, err, crc_ok in window:
+            rows = np.flatnonzero(batch.keys == c)
+            bad = rows[~crc_ok[rows] | (err[rows] != 0)]
+            if len(bad):
+                j = int(bad[0])
+                if not crc_ok[j]:
+                    raise FrameHeaderInvalidPayloadCRC(f"frame {batch.frames[j]} payload CRC mismatch")
+                raise decode_error(int(err[j]), f"frame {batch.frames[j]} failed to decode")
 
 
 def _load_manifest(manifest_path) -> tuple[dict, Path]:

@@ -4,10 +4,12 @@ Frames are the parallel unit, so frames from different files share device
 batches: 256 WAVs encode as one sequence of [F, S] device calls however
 the samples are split across files.  Encode runs models.encoder's submit
 and finish one batch ahead (K2 + K1 on "cuda", with the encoder's sticky
-rung escalation, frames assembled on the device); decode runs K3, with
-the payload CRCs checked by K1, and reads the samples back compacted
-(decode_frames_flat).
-device="cpu" runs their plain PyTorch versions.
+rung escalation, frames assembled on the device).  Decode indexes whole
+archives in sequential reads (archive.index_frames_file, or in memory)
+and decodes runs of each archive's consecutive frames from one host
+buffer a batch (decode_runs): K3, with the payload CRCs checked by K1, and
+the samples read back compacted.  multichannel.x3m_to_wav decodes through
+decode_runs too.  device="cpu" runs their plain PyTorch versions.
 
 The batch defaults are the port's engine.ENCODE_BATCH_FRAMES and
 DECODE_BATCH_FRAMES (768 frames each), in place of x3_tpu's
@@ -18,22 +20,23 @@ multiple of the mesh's size and sharded over its devices, which must be of
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import wave
 
 import numpy as np
+import torch
 
 from . import archive
 from .engine import resolve_batch_frames
-from .errors import FrameHeaderInvalidPayloadCRC, decode_error
-from .models.decoder import decode_frames_flat, payload_batch
+from .errors import FrameDecodeUnexpectedEnd, FrameHeaderInvalidPayloadCRC, decode_error
+from .models.decoder import decode_frames_indexed
 from .models.encoder import EncodeResult, finish, submit
-from .models.sharding import check_mesh, shard_map
-from .models.staging import StagingPool
-from .ops.crc_torch import crc16_words
-from .ops.decode_kernel import payload_words
+from .models.sharding import check_mesh
+from .models.staging import BufferPool, StagingPool, host_empty
 from .params import Parameters
 from .streaming import check_mono16
-from .utils.io import open_overwrite, prefetch_iter
+from .utils.io import AsyncWriter, open_overwrite, prefetch_iter
 from .utils.wav import WavWriter
 
 
@@ -168,18 +171,115 @@ def _run_encode_worklist(work, read, emit, params: Parameters, batch_frames, sou
         filled.close()
 
 
-def _payload_crcs_ok(payloads, want_crcs, params: Parameters, mesh) -> np.ndarray:
-    """bool [len(payloads)]: each payload's CRC16 equals its expected value,
-    computed over a decode batch's buffer sharded over the mesh's devices
-    (K1 on a card)."""
-    buf, _, plens, _ = payload_batch(payloads, [0] * len(payloads), params, mesh.size)
+@dataclasses.dataclass
+class DecodeBatch:
+    """One device call of decode_runs: frames of one Parameters, given as
+    runs of consecutive frames of one source (an archive, a channel)."""
 
-    def crcs(b, pl):
-        words = payload_words(b)
-        return crc16_words(words, pl, words.shape[1])
+    params: Parameters
+    keys: np.ndarray  # int64 [F]: each frame's source
+    frames: np.ndarray  # int64 [F]: each frame's number in its source
+    index: archive.FrameIndex  # the frames' payloads, at offsets in their sources
+    tag: object = None  # the caller's
 
-    crc = shard_map(crcs, mesh, buf, plens)
-    return crc[: len(payloads)].cpu().numpy() == np.asarray(want_crcs, dtype=np.int64)
+    def runs(self):
+        """(key, start, stop) of each run of the batch's frames."""
+        cuts = [0, *(np.flatnonzero(self.keys[1:] != self.keys[:-1]) + 1).tolist(), len(self.keys)]
+        return [(int(self.keys[a]), a, b) for a, b in zip(cuts[:-1], cuts[1:]) if b > a]
+
+    def spans(self):
+        """(key, lo, hi, start, stop) of each run: its bytes are [lo, hi) of
+        its source, from its first payload to its last payload's end."""
+        ix = self.index
+        return [(key, int(ix.offsets[a]), int(ix.offsets[b - 1] + ix.payload_lens[b - 1]), a, b)
+                for key, a, b in self.runs()]
+
+
+def decode_batches(specs, indexes, batch_frames: int) -> list[DecodeBatch]:
+    """x3_tpu's decode worklist over indexed archives (an archive.FrameIndex
+    each, with its spec; their keys 0, 1, ...): every frame grouped by
+    params, in archive and frame order within a group, cut into batches of
+    batch_frames frames."""
+    groups: dict[Parameters, list] = {}
+    for key, (spec, ix) in enumerate(zip(specs, indexes)):
+        groups.setdefault(spec.params, []).append((key, ix))
+    out = []
+    for params, members in groups.items():
+        key_of = np.concatenate([np.full(len(ix), key, np.int64) for key, ix in members])
+        frames = np.concatenate([np.arange(len(ix), dtype=np.int64) for _, ix in members])
+        index = archive.FrameIndex.concat(ix for _, ix in members)
+        for base in range(0, len(key_of), batch_frames):
+            cut = slice(base, base + batch_frames)
+            out.append(DecodeBatch(params, key_of[cut], frames[cut], index[cut]))
+    return out
+
+
+def decode_runs(batches, read_span, mesh, arrange=None):
+    """Decode `batches` (DecodeBatch) on the mesh, one device call each, and
+    yield (batch, samples, err, crc_ok) in order: decode_frames_indexed's
+    results, the payload CRCs checked against the stored ones.
+
+    Each run's bytes are copied once, read_span(key, lo, out) filling the
+    uint8 array `out` with bytes [lo, lo + len(out)) of source `key`, into
+    one host buffer a batch on a read-ahead thread (utils.io.prefetch_iter,
+    depth 1; only it calls read_span).  Three buffers (pinned for a card),
+    sized to the largest batch, pass through a models.staging.BufferPool:
+    one filled, one waiting, one decoding.  A batch goes up in one copy, is
+    walked and CRC-checked on each shard (K3 and K1 on a card) and read
+    back in one pinned copy behind an event, after which its buffer goes
+    back to the pool; each batch's samples are an array of their own, which
+    no later batch reuses.
+
+    arrange(batch, samples): a function of a batch's compacted samples on
+    the device whose result is read back in their place (the `arrange` of
+    decode_frames_indexed).  Close the generator (contextlib.closing)
+    before closing what read_span reads: that stops the read-ahead
+    thread."""
+    if not batches:
+        return
+    spans = [b.spans() for b in batches]
+    size = max(sum(hi - lo for _, lo, hi, _, _ in sp) for sp in spans)
+    pool = BufferPool(host_empty(max(1, size), torch.uint8, mesh.devices[0])
+                      for _ in range(min(3, len(batches))))
+
+    def _filled():
+        for batch, sp in zip(batches, spans):
+            buf = pool.acquire()
+            arr = buf.numpy()
+            offsets = np.empty(len(batch.keys), np.int64)
+            at = 0
+            for key, lo, hi, a, b in sp:
+                read_span(key, lo, arr[at : at + hi - lo])
+                offsets[a:b] = batch.index.offsets[a:b] - lo + at
+                at += hi - lo
+            yield batch, buf, buf[:at], offsets
+
+    filled = prefetch_iter(_filled(), depth=1)
+    try:
+        for batch, buf, data, offsets in filled:
+            ix = batch.index
+            try:
+                out = decode_frames_indexed(
+                    data, offsets, ix.n_samples, ix.payload_lens, batch.params, check_crcs=ix.crcs,
+                    device=mesh.device_type, mesh=mesh,
+                    arrange=None if arrange is None else (lambda t, b=batch: arrange(b, t)))
+            finally:
+                pool.release(buf)
+            yield (batch, *out)
+    finally:
+        pool.close()  # wakes a read-ahead thread waiting for a buffer
+        filled.close()
+
+
+def file_span_reader(handles):
+    """decode_runs' read_span over a list of open files: one seek and one
+    readinto a run."""
+    def read(key, lo, out):
+        f = handles[key]
+        f.seek(lo)
+        if f.readinto(memoryview(out)) != len(out):
+            raise FrameDecodeUnexpectedEnd(f"archive {key} ended inside a frame indexed before")
+    return read
 
 
 def decode_streams(
@@ -193,46 +293,57 @@ def decode_streams(
 
     Archives may use different Parameters: the frame worklist is grouped by
     params, each group decoded with its own frame geometry.  Returns a list
-    of (samples int16 array, sample_rate).  As in x3_tpu, the payload CRCs
-    of every archive are checked before any frame is decoded, and a CRC
-    mismatch or a frame that fails to decode raises its error class."""
+    of (samples int16 array, sample_rate).  Each archive is indexed in
+    memory (archive.index_frames_in_memory) and its frames decoded in runs
+    (decode_runs), their payload CRCs checked by the decode calls.  The
+    errors are x3_tpu's, which checks every archive's CRCs, in order, before
+    it decodes any frame: the first CRC mismatch in (archive, frame) order
+    among the archives before the first one whose header or walk fails,
+    then that failure, then the first frame in worklist order that fails to
+    decode.  The call returns nothing on an error, so every batch is
+    decoded before the error is chosen."""
     mesh = check_mesh(mesh, device)
     batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
-    specs = []
-    groups: dict[Parameters, list] = {}  # params -> [(archive_idx, frame_idx, payload, n_samples)]
-    for ai, data in enumerate(archives):
-        spec, header_size = archive.parse_archive_header(data)
+    specs, indexes, failure = [], [], None
+    for data in archives:
+        try:
+            spec, header_size = archive.parse_archive_header(data)
+            index = archive.index_frames_in_memory(data, header_size)
+        except Exception as e:  # noqa: BLE001 - raised below, after earlier archives' CRCs
+            failure = e
+            break
         specs.append(spec)
-        index = list(archive.walk_frames(data, header_size))
-        payloads = [data[off : off + h.payload_len] for off, h in index]
-        for base in range(0, len(index), batch_frames):
-            ok = _payload_crcs_ok(payloads[base : base + batch_frames],
-                                  [h.payload_crc for _, h in index[base : base + batch_frames]],
-                                  spec.params, mesh)
-            if not ok.all():
-                bad = base + int(np.nonzero(~ok)[0][0])
-                raise FrameHeaderInvalidPayloadCRC(f"archive {ai} frame {bad} payload CRC mismatch")
-        work = groups.setdefault(spec.params, [])
-        for fi, ((_, h), payload) in enumerate(zip(index, payloads)):
-            work.append((ai, fi, payload, h.samples))
+        indexes.append(index)
 
-    outs: list[list[np.ndarray]] = [[] for _ in archives]  # each archive's runs of frames, in order
-    for params, work in groups.items():
-        for base in range(0, len(work), batch_frames):
-            chunk = work[base : base + batch_frames]
-            counts = [n for _, _, _, n in chunk]
-            dec, err = decode_frames_flat([p for _, _, p, _ in chunk], counts, params,
-                                          device=mesh.device_type, mesh=mesh)
-            if err.any():
-                bad = int(np.nonzero(err)[0][0])
-                ai, fi = chunk[bad][0], chunk[bad][1]
-                raise decode_error(err[bad], f"archive {ai} frame {fi} failed to decode")
-            bounds = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
-            for ai, a, b in _runs(chunk):
-                outs[ai].append(dec[bounds[a] : bounds[b]])
+    outs = [np.empty(int(ix.n_samples.sum(dtype=np.int64)), np.int16) for ix in indexes]
+    done = [0] * len(indexes)
+    bad_crc, bad_decode = None, None  # (archive, frame) of the first; (archive, frame, code)
 
-    return [(np.concatenate(parts) if parts else np.zeros(0, np.int16), spec.sample_rate)
-            for parts, spec in zip(outs, specs)]
+    def read(key, lo, out):
+        out[:] = np.frombuffer(archives[key], np.uint8, len(out), lo)
+
+    with contextlib.closing(decode_runs(decode_batches(specs, indexes, batch_frames), read, mesh)) as decoded:
+        for batch, dec, err, crc_ok in decoded:
+            if not crc_ok.all():
+                j = int(np.argmin(crc_ok))
+                at = (int(batch.keys[j]), int(batch.frames[j]))
+                bad_crc = at if bad_crc is None else min(bad_crc, at)
+            if bad_decode is None and err.any():
+                j = int(np.argmax(err != 0))
+                bad_decode = (int(batch.keys[j]), int(batch.frames[j]), int(err[j]))
+            bounds = np.concatenate([[0], np.cumsum(batch.index.n_samples, dtype=np.int64)])
+            for ai, a, b in batch.runs():
+                n = int(bounds[b] - bounds[a])
+                outs[ai][done[ai] : done[ai] + n] = dec[bounds[a] : bounds[b]]
+                done[ai] += n
+    if bad_crc is not None:
+        raise FrameHeaderInvalidPayloadCRC(f"archive {bad_crc[0]} frame {bad_crc[1]} payload CRC mismatch")
+    if failure is not None:
+        raise failure
+    if bad_decode is not None:
+        ai, fi, code = bad_decode
+        raise decode_error(code, f"archive {ai} frame {fi} failed to decode")
+    return [(out, spec.sample_rate) for out, spec in zip(outs, specs)]
 
 
 def wav_to_x3a_batch(
@@ -317,10 +428,12 @@ def x3a_to_wav_batch(
     """Batch-convert many .x3a archives back to WAV files, frames from all
     archives sharing device batches.  Returns per-file sample counts.
 
-    Streaming: as in files.x3a_to_wav, archives are indexed with
-    header-only seeks and payloads are read one device batch at a time,
-    with WAVs written incrementally, so peak memory is O(batch_frames)
-    whatever the total archive volume.  A batch's payload CRC mismatch (K1
+    Streaming: every archive is indexed first in sequential reads
+    (archive.index_frames_file, about 18 bytes a frame); then each batch's
+    runs of consecutive frames of one archive are read, one read a run,
+    into one host buffer and decoded from it (decode_runs), with WAVs
+    written incrementally, so beyond the index peak memory is
+    O(batch_frames) whatever the total archive volume.  A batch's payload CRC mismatch (K1
     on "cuda") raises before its decode errors, after every earlier batch
     was written; outputs flushed before a raise may be partial.
 
@@ -331,78 +444,57 @@ def x3a_to_wav_batch(
     batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
 
     handles, writers = [], {}
+    # One writer thread for every WAV (a thread each cost more than the
+    # reads): a WavWriter's close() queues its header's patch there and
+    # returns.  Its blocks are runs, a few dozen a batch.
+    shared = AsyncWriter(None, depth=64)
     try:
+        # Every archive is indexed before any frame is decoded, as in
+        # x3_tpu: a bad header anywhere raises before any WAV is written.
         specs, indexes = [], []
         for p in x3a_filenames:
             f = open(p, "rb")
             handles.append(f)
             spec, hs = archive.read_archive_header_file(f)
             specs.append(spec)
-            indexes.append(list(archive.walk_frames_file(f, hs)))
-
-        # Frame worklists grouped by params (each archive belongs to exactly
-        # one group, so its frames still arrive in order).
-        groups: dict[Parameters, list] = {}
-        for ai, index in enumerate(indexes):
-            g = groups.setdefault(specs[ai].params, [])
-            for fi, (off, h) in enumerate(index):
-                g.append((ai, fi, off, h))
+            indexes.append(archive.index_frames_file(f, hs))
 
         def writer_for(ai):
             if ai not in writers:
-                writers[ai] = WavWriter(wav_filenames[ai], specs[ai].sample_rate)
+                writers[ai] = WavWriter(wav_filenames[ai], specs[ai].sample_rate, writer=shared)
             return writers[ai]
 
         done = [0] * len(handles)
-
-        def _prepared():
-            # The next batch's payload reads run on a read-ahead thread
-            # while the current batch decodes; only this generator touches
-            # `handles`.
-            for params, work in groups.items():
-                for base in range(0, len(work), batch_frames):
-                    chunk = work[base : base + batch_frames]
-                    payloads = []
-                    for ai, _, off, h in chunk:
-                        handles[ai].seek(off)
-                        payloads.append(handles[ai].read(h.payload_len))
-                    yield params, chunk, payloads
-
-        prepared = prefetch_iter(_prepared(), depth=1)
-        try:
-            for params, chunk, payloads in prepared:
-                heads = [h for _, _, _, h in chunk]
-                counts = [h.samples for h in heads]
-                dec, err, crc_ok = decode_frames_flat(
-                    payloads, counts, params,
-                    check_crcs=[h.payload_crc for h in heads], device=mesh.device_type, mesh=mesh,
-                )
+        batches = decode_batches(specs, indexes, batch_frames)
+        # Closed before the finally below closes `handles`, so that no
+        # handle is closed under a read of the read-ahead thread.
+        with contextlib.closing(decode_runs(batches, file_span_reader(handles), mesh)) as decoded:
+            for batch, dec, err, crc_ok in decoded:
                 if not crc_ok.all():
-                    ai, fi = chunk[int(np.nonzero(~crc_ok)[0][0])][:2]
-                    raise FrameHeaderInvalidPayloadCRC(f"archive {ai} frame {fi} payload CRC mismatch")
+                    j = int(np.argmin(crc_ok))
+                    raise FrameHeaderInvalidPayloadCRC(
+                        f"archive {batch.keys[j]} frame {batch.frames[j]} payload CRC mismatch")
                 if err.any():
-                    bad = int(np.nonzero(err)[0][0])
-                    ai, fi = chunk[bad][:2]
-                    raise decode_error(err[bad], f"archive {ai} frame {fi} failed to decode")
-                bounds = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
-                for ai, a, b in _runs(chunk):
+                    j = int(np.argmax(err != 0))
+                    raise decode_error(err[j], f"archive {batch.keys[j]} frame {batch.frames[j]} failed to decode")
+                bounds = np.concatenate([[0], np.cumsum(batch.index.n_samples, dtype=np.int64)])
+                for ai, a, b in batch.runs():
                     writer_for(ai).write(dec[bounds[a] : bounds[b]])  # one write a run
                     done[ai] += b - a
                     if done[ai] == len(indexes[ai]):
                         writers.pop(ai).close()
-        finally:
-            # Stop the read-ahead thread before the outer finally closes
-            # `handles`, so no handle is closed under a read.
-            prepared.close()
 
         # Archives with no frames still give (empty) WAVs.
         for ai, index in enumerate(indexes):
-            if not index:
+            if not len(index):
                 writer_for(ai)
                 writers.pop(ai).close()
-        return [int(sum(h.samples for _, h in index)) for index in indexes]
+        return [int(ix.n_samples.sum(dtype=np.int64)) for ix in indexes]
     finally:
-        for wtr in writers.values():
-            wtr.close()
-        for f in handles:
-            f.close()
+        try:
+            for wtr in writers.values():
+                wtr.close()
+            shared.close()  # every WAV written and closed; raises a write error
+        finally:
+            for f in handles:
+                f.close()

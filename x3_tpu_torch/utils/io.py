@@ -36,7 +36,12 @@ class AsyncWriter:
     stays bounded by `depth` pending blocks.  The writer thread's exception
     is raised again on the next write()/drain()/close(); close() drains but
     does not close the underlying file (its owner may still patch headers,
-    such as a WAV's sizes)."""
+    such as a WAV's sizes).
+
+    One writer may serve several files (f=None): a block is then a (file,
+    data) pair, and call(fn) queues a function to run on the writer's
+    thread after the blocks before it, such as a file's closing, which
+    runs after a write error too."""
 
     def __init__(self, f, depth: int = 2):
         self._f = f
@@ -52,11 +57,16 @@ class AsyncWriter:
             try:
                 # A write error poisons the writer: later blocks are dropped
                 # (resuming after a lost block would corrupt the stream) and
-                # every later producer call raises it.
-                if blk is not None and self._exc is None:
-                    self._f.write(blk)
+                # every later producer call raises it; functions queued by
+                # call() (files' closings) still run.
+                if callable(blk):
+                    blk()
+                elif blk is not None and self._exc is None:
+                    f, data = blk if isinstance(blk, tuple) else (self._f, blk)
+                    f.write(data)
             except BaseException as e:  # raised again on the producer's thread
-                self._exc = e
+                if self._exc is None:  # the first error
+                    self._exc = e
             finally:
                 self._q.task_done()
             if blk is None:
@@ -69,6 +79,11 @@ class AsyncWriter:
     def write(self, data) -> None:
         self._check()
         self._q.put(data)
+
+    def call(self, fn) -> None:
+        """Run fn() on the writer's thread after every block queued before
+        it; an exception it raises is raised like a write error."""
+        self._q.put(fn)
 
     def drain(self) -> None:
         """Block until every queued block is written; raise a write error."""
