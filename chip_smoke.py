@@ -141,6 +141,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import wave
 from pathlib import Path
@@ -1002,8 +1003,6 @@ class RssSampler:
     the `with` block runs."""
 
     def __init__(self, period: float = 0.001):
-        import threading
-
         self.period, self.peak = period, rss_now()
         self._stop = threading.Event()
         self._t = threading.Thread(target=self._run, daemon=True)
@@ -1774,7 +1773,7 @@ def mesh_profiling(params, slices, td: Path) -> str:
     whose Chrome trace must hold K1, K2 and K3 device rows."""
     import torch
 
-    from x3_tpu_torch.utils.profiling import annotate, aot_compile, trace
+    from x3_tpu_torch.utils.profiling import aot_compile, span, trace
 
     S = params.samples_per_frame
     d = slices[CLASSES[0]]
@@ -1791,16 +1790,16 @@ def mesh_profiling(params, slices, td: Path) -> str:
     require(not err.any() and np.array_equal(out.cpu().numpy().reshape(-1), samples.reshape(-1)),
             "aot_compile's encode and decode do not roundtrip")
     with trace(td / "trace") as prof:
-        with annotate("x3.encode"):
+        with span("x3.encode"):
             enc = fns["encode"](samples, n_valid)
-        with annotate("x3.decode"):
+        with span("x3.decode"):
             fns["decode"](payload, n_valid, nbytes)
     events = json.loads(Path(prof.trace_path).read_text())["traceEvents"]
     kernel_rows = {e["name"] for e in events if e.get("cat") == "kernel"}
     names = {"K1": "crc16_fold_kernel", "K2": "encode_kernel", "K3": "decode_kernel"}
     missing = [k for k, n in names.items() if not any(n in row for row in kernel_rows)]
     require(not missing, f"the trace holds no device row of {missing}: {sorted(kernel_rows)[:20]}")
-    require({"x3.encode", "x3.decode"} <= {e["name"] for e in events}, "the trace lacks the annotations")
+    require({"x3.encode", "x3.decode"} <= {e["name"] for e in events}, "the trace lacks the spans")
     return (f"aot_compile({N_FRAMES_CHECK}) {t_aot:.2f} s, then encode {t_enc * 1e3:.1f} ms and decode "
             f"{t_dec * 1e3:.1f} ms of {N_FRAMES_CHECK} frames; trace: {len(events)} events, "
             f"{len(kernel_rows)} kernel names, K1-K3 rows present")
@@ -2090,53 +2089,22 @@ def profile_call(name: str, label: str, fn, top: int):
 def stream_waits(fn) -> dict:
     """Seconds the calling thread spends in fn() (a decode to WAV or to
     memory) waiting on the read-ahead thread of files or multifile for the
-    next chunk or batch, on the events behind the decode's read-backs, and
-    on the WAV writers' queues (their writes and closing drains): each
-    timed around the call on this thread alone, by wrapping it for the
-    duration."""
-    from x3_tpu_torch import files, multifile
-    from x3_tpu_torch.models import decoder
-    from x3_tpu_torch.utils import io as xio
+    next chunk or batch (reader), on the events behind the read-backs
+    (event), and on the WAV writers' queues, their drains and closings
+    (writer): the port's x3.prefetch_wait, x3.device_wait and
+    x3.writer_wait spans of this thread over the call
+    (utils.profiling.spans)."""
+    from x3_tpu_torch.utils import profiling
 
-    waits = {"reader": 0.0, "event": 0.0, "writer": 0.0}
-
-    def timed(key, f):
-        def g(*a, **k):
-            t0 = time.perf_counter()
-            try:
-                return f(*a, **k)
-            finally:
-                waits[key] += time.perf_counter() - t0
-        return g
-
-    prefetch = files.prefetch_iter
-
-    def timed_prefetch(src, depth=2):
-        it = prefetch(src, depth)
-        try:
-            while True:
-                t0 = time.perf_counter()
-                try:
-                    item = next(it)
-                except StopIteration:
-                    return
-                finally:
-                    waits["reader"] += time.perf_counter() - t0
-                yield item
-        finally:
-            it.close()
-
-    saved = (files.prefetch_iter, multifile.prefetch_iter, decoder.wait, xio.AsyncWriter.write,
-             xio.AsyncWriter.close)
-    files.prefetch_iter = multifile.prefetch_iter = timed_prefetch
-    decoder.wait = timed("event", decoder.wait)
-    xio.AsyncWriter.write = timed("writer", xio.AsyncWriter.write)
-    xio.AsyncWriter.close = timed("writer", xio.AsyncWriter.close)
-    try:
-        fn()
-    finally:
-        (files.prefetch_iter, multifile.prefetch_iter, decoder.wait, xio.AsyncWriter.write,
-         xio.AsyncWriter.close) = saved
+    keys = {"x3.prefetch_wait": "reader", "x3.device_wait": "event", "x3.writer_wait": "writer"}
+    waits = dict.fromkeys(keys.values(), 0.0)
+    me, t0 = threading.get_ident(), time.perf_counter_ns()
+    fn()
+    log = profiling.spans(t0)
+    require(not log.wrapped, "stream_waits: the span ring wrapped during the call")
+    for s in log:
+        if s.thread == me and s.start_ns >= t0 and s.name in keys:
+            waits[keys[s.name]] += (s.end_ns - s.start_ns) * 1e-9
     return waits
 
 

@@ -784,3 +784,53 @@ def test_staging_reuse_stress(cuda):
     got = multifile.encode_streams(streams, params, 32, device=cuda)
     assert b"".join(r.data for r in got) == b"".join(
         r.data for r in multifile.encode_streams(streams, params, 32, device="cpu"))
+
+
+def test_decode_spans_on_cuda(cuda):
+    """decode_streams on the card under torch.profiler: the spans of the
+    calling thread, put on the profiler's clock, start beside their
+    record_function events (the closest pair within 20 us, half within
+    100 us; the rest is the interpreter's lock changing hands between the
+    two reads, with the read-ahead thread running); the launches count
+    their H2D bytes and the read-back waits their D2H bytes (the decoded
+    samples at least)."""
+    import threading
+    import time
+
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import multifile
+    from x3_tpu_torch.utils import profiling
+
+    params = Parameters()
+    rng = np.random.default_rng(5)
+    full = _mixed(rng, 3 * params.samples_per_frame + 11)
+    xs = [full, full[:1], full[:0]]
+    head = xt.build_archive_header(96000, params)
+    arcs = [head + xt.encode(x, params, device=cuda).data for x in xs]
+    multifile.decode_streams(arcs, batch_frames=2, device=cuda)  # warm
+    t0 = time.perf_counter_ns()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        out = multifile.decode_streams(arcs, batch_frames=2, device=cuda)
+    finally:
+        prof.stop()
+    for (got, _), x in zip(out, xs):
+        np.testing.assert_array_equal(got, x)
+    events = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.name().startswith("x3."):
+            events.setdefault(e.name(), []).append(e.start_ns())
+    me = threading.get_ident()
+    log = [s for s in profiling.spans(t0) if s.start_ns >= t0]
+    mine = [s for s in log if s.thread == me]
+    assert {s.name for s in mine} >= {"x3.decode_streams", "x3.decode.launch", "x3.device_wait"}
+    gaps = sorted(min(abs(profiling.profiler_ns(s.start_ns) - e) for e in events[s.name]) for s in mine)
+    assert gaps[0] < 20_000 and gaps[len(gaps) // 2] < 100_000, gaps
+    counts = {}
+    for s in log:
+        for k, v in s.counts.items():
+            counts[k] = counts.get(k, 0) + v
+    assert counts["h2d_bytes"] >= sum(len(a) - len(head) for a in arcs) * 0.9
+    assert counts["d2h_bytes"] >= 2 * sum(len(x) for x in xs)

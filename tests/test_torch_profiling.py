@@ -55,24 +55,24 @@ def test_aot_compile_like_x3_tpu():
 
 def test_trace_writes_the_annotations(tmp_path, caplog):
     """trace() writes one Chrome trace into its directory, holding the
-    annotate() names of the region, and logs the device events it kept."""
+    span() names of the region, and logs the device events it kept."""
     from x3_tpu_torch.ops.encode_kernel import encode_frames
-    from x3_tpu_torch.utils.profiling import annotate, trace
+    from x3_tpu_torch.utils.profiling import span, trace
 
     pp = port_params(TINY)
     S = TINY.samples_per_frame
     with caplog.at_level(logging.INFO, logger="x3_tpu_torch"):
         with trace(tmp_path / "tr") as prof:
-            with annotate("x3.encode"):
+            with span("x3.encode"):
                 encode_frames(torch.zeros((4, S), dtype=torch.int16), torch.full((4,), S, dtype=torch.int32), pp)
-            with annotate("x3.outer"), annotate("x3.inner"):
+            with span("x3.outer"), span("x3.inner"):
                 torch.ones(3).sum()
     files = list((tmp_path / "tr").iterdir())
     assert files == [tmp_path / "tr" / files[0].name] and str(files[0]) == prof.trace_path
     names = {e.get("name") for e in json.loads(files[0].read_text())["traceEvents"]}
     assert {"x3.encode", "x3.outer", "x3.inner"} <= names
     assert any("device events kept" in r.getMessage() for r in caplog.records)
-    with annotate("x3.untraced"):  # no profiler running: a no-op region
+    with span("x3.untraced"):  # no profiler running: recorded in memory alone
         pass
 
 

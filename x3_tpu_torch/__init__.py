@@ -20,10 +20,11 @@ for NVIDIA Hopper (csrc/*.cu, built with nvcc on first use):
   error root `X3Error`, as x3_tpu exports them;
 * `parallel.mesh` — frame-sharded encode and decode over a mesh of
   devices (the batch APIs' `mesh=`), `entry` — the flagship step and the
-  multi-device dry run, `utils.profiling` — trace, annotate and warm-up
-  hooks, and `tools` — the decode parity check, the fuzz soak and
-  x3_tpu's host tools (differential fuzz, corpus roundtrip, per-file
-  bench, cold-build sweep) across devices;
+  multi-device dry run, `utils.profiling` — the always-on span recorder
+  (`span`, `spans`, `counters`), trace and warm-up hooks, and `tools` —
+  the decode parity check, the fuzz soak and x3_tpu's host tools
+  (differential fuzz, corpus roundtrip, per-file bench, cold-build sweep)
+  across devices;
 * `bench` — x3_tpu's bench.py on the port (`python3 bench_torch.py`): device
   and file MB/s and exactness of the three corpus classes as one JSON line.
 

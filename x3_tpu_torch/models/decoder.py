@@ -11,7 +11,9 @@ event: as one array a frame (views of it) or, compacted on the device, as
 the frames' samples back to back (decode_frames_flat,
 decode_frames_indexed).  The buffer is a chunk of an archive as read
 (decode_frames_indexed, under the file decode) or the payloads of a list
-joined into one (the other calls)."""
+joined into one (the other calls).  decode_frames_indexed's host side up
+to the read-back's wait is the x3.decode.launch span (utils.profiling),
+with the bytes its uploads copy to a card (h2d_bytes)."""
 
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from ..errors import decode_error
 from ..ops.encode_kernel import frame_geometry, width_rungs
 from ..params import Parameters
+from ..utils import profiling
 from .sharding import check_mesh, shard_map
 from .staging import host_empty, record, to_host, wait
 
@@ -128,6 +131,8 @@ def upload_span(data: torch.Tensor, offsets, lengths, n_samples, params: Paramet
     meta[1, :f] = lengths
     meta[2, :f] = n_samples
     meta_t, span = meta_t.to(device, non_blocking=True), data[lo:hi].to(device, non_blocking=True)
+    if span.is_cuda:
+        profiling.add(h2d_bytes=meta_t.nbytes + span.nbytes)
     return packed_payload_words(span, meta_t[0], meta_t[1], w), meta_t[2], meta_t[1], n_blocks
 
 
@@ -151,11 +156,17 @@ def _walk(data, offsets, lengths, n_samples, params: Parameters, checked: bool, 
     return out, err, (crc if checked else None), ns
 
 
-def _read_back(f: int, err, crc, check_crcs, *more):
-    """Host copies of err[:f], the CRC verdicts and `more`, read after one
-    event behind them all."""
+def _enqueue_read_back(f: int, err, crc, *more):
+    """Host copies of err[:f], the CRC verdicts and `more`, enqueued, with
+    an event behind them all: read them after _read_back waits on it."""
     host = [to_host(t) for t in (err[:f], *((crc[:f],) if crc is not None else ()), *more)]
-    wait(record(err.device))
+    return host, record(err.device)
+
+
+def _read_back(host, event, crc, check_crcs):
+    """_enqueue_read_back's copies as arrays, once its event has completed,
+    with the CRCs compared to check_crcs."""
+    wait(event)
     out = [t.numpy() for t in host]
     if crc is not None:
         out[1] = out[1] == np.asarray(check_crcs, dtype=np.int64)
@@ -182,7 +193,7 @@ def decode_frames_batch(payloads, n_samples, params: Parameters | None = None,
         return empty if check_crcs is None else empty + (np.zeros(0, bool),)
     data, offsets, lengths = _join(payloads, mesh.devices[0])
     out, err, crc, _ = _walk(data, offsets, lengths, n_samples, params, check_crcs is not None, mesh)
-    *head, host = _read_back(f, err, crc, check_crcs, out[:f])
+    *head, host = _read_back(*_enqueue_read_back(f, err, crc, out[:f]), crc, check_crcs)
     outs = [host[i, :n] for i, n in enumerate(np.asarray(n_samples).tolist())]
     return (outs, *head)
 
@@ -234,10 +245,12 @@ def decode_frames_indexed(data, offsets, n_samples, payload_lens, params: Parame
     if f == 0:
         empty = (np.zeros(0, np.int16), np.zeros(0, np.int32))
         return empty if check_crcs is None else empty + (np.zeros(0, bool),)
-    out, err, crc, ns = _walk(_host_bytes(data), offsets, payload_lens, n_samples, params,
-                              check_crcs is not None, mesh)
-    flat = compact_frames(out, ns[:f], int(np.sum(n_samples, dtype=np.int64)))
-    *head, host = _read_back(f, err, crc, check_crcs, flat if arrange is None else arrange(flat))
+    with profiling.span("x3.decode.launch", h2d_bytes=0):
+        out, err, crc, ns = _walk(_host_bytes(data), offsets, payload_lens, n_samples, params,
+                                  check_crcs is not None, mesh)
+        flat = compact_frames(out, ns[:f], int(np.sum(n_samples, dtype=np.int64)))
+        pending = _enqueue_read_back(f, err, crc, flat if arrange is None else arrange(flat))
+    *head, host = _read_back(*pending, crc, check_crcs)
     return (host, *head)
 
 

@@ -7,13 +7,19 @@ non_blocking=True on the device's current stream, and the host reads a
 read-back only after an event recorded behind it has completed.  On the
 CPU the same calls take no copy and record no event: that is the device's
 routing, not a fallback.  Nothing here catches a failed allocation or
-copy."""
+copy.  The host's waits are spans (utils.profiling): x3.device_wait on a
+read-back's event, with the bytes of the read-backs enqueued on this
+thread since the last wait (d2h_bytes), and x3.pool_wait on a pool."""
 
 from __future__ import annotations
 
 import threading
 
 import torch
+
+from ..utils.profiling import span
+
+_d2h = threading.local()  # bytes of this thread's read-backs not yet waited for
 
 
 def to_host(t: torch.Tensor) -> torch.Tensor:
@@ -24,6 +30,7 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
         return t
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
+    _d2h.nbytes = getattr(_d2h, "nbytes", 0) + host.nbytes
     return host
 
 
@@ -47,7 +54,9 @@ def record(device: torch.device) -> torch.cuda.Event | None:
 def wait(event: torch.cuda.Event | None) -> None:
     """Block the host until `event` has completed (no-op for None)."""
     if event is not None:
-        event.synchronize()
+        nbytes, _d2h.nbytes = getattr(_d2h, "nbytes", 0), 0
+        with span("x3.device_wait", d2h_bytes=nbytes):
+            event.synchronize()
 
 
 class Staging:
@@ -71,7 +80,7 @@ class BufferPool:
         self._closed = False
 
     def acquire(self):
-        with self._cv:
+        with span("x3.pool_wait"), self._cv:
             self._cv.wait_for(lambda: self._free or self._closed)
             if self._closed:
                 raise RuntimeError("the staging pool is closed")

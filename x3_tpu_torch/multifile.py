@@ -10,6 +10,10 @@ and decodes runs of each archive's consecutive frames from one host
 buffer a batch (decode_runs): K3, with the payload CRCs checked by K1, and
 the samples read back compacted.  multichannel.x3m_to_wav decodes through
 decode_runs too.  device="cpu" runs their plain PyTorch versions.
+decode_streams records its call as spans (utils.profiling): the root
+x3.decode_streams, x3.decode.index, x3.decode.worklist (the batches and
+their host buffers), x3.decode.scatter, and decode_runs' x3.decode.stage
+on the read-ahead thread.
 
 The batch defaults are the port's engine.ENCODE_BATCH_FRAMES and
 DECODE_BATCH_FRAMES (768 frames each), in place of x3_tpu's
@@ -37,6 +41,7 @@ from .models.staging import BufferPool, StagingPool, host_empty
 from .params import Parameters
 from .streaming import check_mono16
 from .utils.io import AsyncWriter, open_overwrite, prefetch_iter
+from .utils.profiling import minor_faults, span
 from .utils.wav import WavWriter
 
 
@@ -237,21 +242,24 @@ def decode_runs(batches, read_span, mesh, arrange=None):
     thread."""
     if not batches:
         return
-    spans = [b.spans() for b in batches]
-    size = max(sum(hi - lo for _, lo, hi, _, _ in sp) for sp in spans)
-    pool = BufferPool(host_empty(max(1, size), torch.uint8, mesh.devices[0])
-                      for _ in range(min(3, len(batches))))
+    with span("x3.decode.worklist"):
+        spans = [b.spans() for b in batches]
+        size = max(sum(hi - lo for _, lo, hi, _, _ in sp) for sp in spans)
+        pool = BufferPool(host_empty(max(1, size), torch.uint8, mesh.devices[0])
+                          for _ in range(min(3, len(batches))))
 
     def _filled():
         for batch, sp in zip(batches, spans):
-            buf = pool.acquire()
-            arr = buf.numpy()
-            offsets = np.empty(len(batch.keys), np.int64)
-            at = 0
-            for key, lo, hi, a, b in sp:
-                read_span(key, lo, arr[at : at + hi - lo])
-                offsets[a:b] = batch.index.offsets[a:b] - lo + at
-                at += hi - lo
+            with span("x3.decode.stage") as stage:
+                buf = pool.acquire()
+                arr = buf.numpy()
+                offsets = np.empty(len(batch.keys), np.int64)
+                at = 0
+                for key, lo, hi, a, b in sp:
+                    read_span(key, lo, arr[at : at + hi - lo])
+                    offsets[a:b] = batch.index.offsets[a:b] - lo + at
+                    at += hi - lo
+                stage.add(bytes=at)
             yield batch, buf, buf[:at], offsets
 
     filled = prefetch_iter(_filled(), depth=1)
@@ -282,6 +290,37 @@ def file_span_reader(handles):
     return read
 
 
+def _index_streams(archives):
+    """(specs, indexes, failure): each archive's header and in-memory
+    frame index (archive.index_frames_in_memory) up to the first that
+    fails, and that failure (None if none did), in one x3.decode.index
+    span."""
+    specs, indexes, failure = [], [], None
+    with span("x3.decode.index", archives=len(archives)):
+        for data in archives:
+            try:
+                spec, header_size = archive.parse_archive_header(data)
+                index = archive.index_frames_in_memory(data, header_size)
+            except Exception as e:  # noqa: BLE001 - raised by the caller, after earlier archives' CRCs
+                failure = e
+                break
+            specs.append(spec)
+            indexes.append(index)
+    return specs, indexes, failure
+
+
+@contextlib.contextmanager
+def _scatter_span(nbytes: int):
+    """An x3.decode.scatter span of `nbytes` copied into the outputs, with
+    the thread's minor page faults over it (minflt)."""
+    faults = minor_faults()
+    with span("x3.decode.scatter", bytes=nbytes) as sp:
+        try:
+            yield
+        finally:
+            sp.add(minflt=minor_faults() - faults)
+
+
 def decode_streams(
     archives,
     batch_frames: int | None = None,
@@ -304,38 +343,34 @@ def decode_streams(
     decoded before the error is chosen."""
     mesh = check_mesh(mesh, device)
     batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
-    specs, indexes, failure = [], [], None
-    for data in archives:
-        try:
-            spec, header_size = archive.parse_archive_header(data)
-            index = archive.index_frames_in_memory(data, header_size)
-        except Exception as e:  # noqa: BLE001 - raised below, after earlier archives' CRCs
-            failure = e
-            break
-        specs.append(spec)
-        indexes.append(index)
+    with span("x3.decode_streams", archives=len(archives)) as call:
+        specs, indexes, failure = _index_streams(archives)
+        call.add(frames=sum(len(ix) for ix in indexes))
+        with _scatter_span(0):
+            outs = [np.empty(int(ix.n_samples.sum(dtype=np.int64)), np.int16) for ix in indexes]
+        done = [0] * len(indexes)
+        bad_crc, bad_decode = None, None  # (archive, frame) of the first; (archive, frame, code)
 
-    outs = [np.empty(int(ix.n_samples.sum(dtype=np.int64)), np.int16) for ix in indexes]
-    done = [0] * len(indexes)
-    bad_crc, bad_decode = None, None  # (archive, frame) of the first; (archive, frame, code)
+        def read(key, lo, out):
+            out[:] = np.frombuffer(archives[key], np.uint8, len(out), lo)
 
-    def read(key, lo, out):
-        out[:] = np.frombuffer(archives[key], np.uint8, len(out), lo)
-
-    with contextlib.closing(decode_runs(decode_batches(specs, indexes, batch_frames), read, mesh)) as decoded:
-        for batch, dec, err, crc_ok in decoded:
-            if not crc_ok.all():
-                j = int(np.argmin(crc_ok))
-                at = (int(batch.keys[j]), int(batch.frames[j]))
-                bad_crc = at if bad_crc is None else min(bad_crc, at)
-            if bad_decode is None and err.any():
-                j = int(np.argmax(err != 0))
-                bad_decode = (int(batch.keys[j]), int(batch.frames[j]), int(err[j]))
-            bounds = np.concatenate([[0], np.cumsum(batch.index.n_samples, dtype=np.int64)])
-            for ai, a, b in batch.runs():
-                n = int(bounds[b] - bounds[a])
-                outs[ai][done[ai] : done[ai] + n] = dec[bounds[a] : bounds[b]]
-                done[ai] += n
+        with span("x3.decode.worklist"):
+            batches = decode_batches(specs, indexes, batch_frames)
+        with contextlib.closing(decode_runs(batches, read, mesh)) as decoded:
+            for batch, dec, err, crc_ok in decoded:
+                if not crc_ok.all():
+                    j = int(np.argmin(crc_ok))
+                    at = (int(batch.keys[j]), int(batch.frames[j]))
+                    bad_crc = at if bad_crc is None else min(bad_crc, at)
+                if bad_decode is None and err.any():
+                    j = int(np.argmax(err != 0))
+                    bad_decode = (int(batch.keys[j]), int(batch.frames[j]), int(err[j]))
+                with _scatter_span(dec.nbytes):
+                    bounds = np.concatenate([[0], np.cumsum(batch.index.n_samples, dtype=np.int64)])
+                    for ai, a, b in batch.runs():
+                        n = int(bounds[b] - bounds[a])
+                        outs[ai][done[ai] : done[ai] + n] = dec[bounds[a] : bounds[b]]
+                        done[ai] += n
     if bad_crc is not None:
         raise FrameHeaderInvalidPayloadCRC(f"archive {bad_crc[0]} frame {bad_crc[1]} payload CRC mismatch")
     if failure is not None:

@@ -21,6 +21,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from ..utils.profiling import span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("crc16", "encode", "decode", "front", "pack_blocks", "pack_walk")
 NVCC_FLAGS = [
@@ -104,8 +106,12 @@ def load(name: str, symbol: str, n_ptr: int, n_int: int):
     """ctypes function `symbol` from csrc/<name>.cu, built on first use.
 
     Every exported function takes `n_ptr` device pointers, then `n_int`
-    ints, then the CUDA stream, and returns the cudaError_t of its launch."""
-    lib = ctypes.CDLL(str(build(name)))
+    ints, then the CUDA stream, and returns the cudaError_t of its launch.
+    An x3.kernels.build span covers the build (built: 1 when nvcc ran)
+    and the load."""
+    with span("x3.kernels.build", loaded=1) as sp:
+        sp.add(built=int(not library_path(name).exists()))
+        lib = ctypes.CDLL(str(build(name)))
     fn = getattr(lib, symbol)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -5,15 +5,20 @@ thread with a bounded queue (AsyncWriter) and a read-ahead thread
 (prefetch_iter) overlap file I/O with the conversion wherever a spare core
 exists or the disk blocks.  The bytes written and the errors raised are
 those of plain synchronous I/O: a failed write raises at the next
-write()/drain()/close(), before the converter returns.
+write()/drain()/close(), before the converter returns.  The caller's waits
+are spans (utils.profiling): x3.prefetch_wait on the read-ahead queue,
+x3.writer_wait on the writer's.
 """
 
 from __future__ import annotations
 
+import contextvars
 import os
 import queue
 import threading
 import time
+
+from .profiling import span
 
 
 def open_overwrite(path):
@@ -78,24 +83,28 @@ class AsyncWriter:
 
     def write(self, data) -> None:
         self._check()
-        self._q.put(data)
+        with span("x3.writer_wait"):
+            self._q.put(data)
 
     def call(self, fn) -> None:
         """Run fn() on the writer's thread after every block queued before
         it; an exception it raises is raised like a write error."""
-        self._q.put(fn)
+        with span("x3.writer_wait"):
+            self._q.put(fn)
 
     def drain(self) -> None:
         """Block until every queued block is written; raise a write error."""
-        self._q.join()
+        with span("x3.writer_wait"):
+            self._q.join()
         self._check()
 
     def close(self) -> None:
         """Drain, stop the thread, and raise any pending write error."""
         if not self._closed:
             self._closed = True
-            self._q.put(None)
-            self._t.join()
+            with span("x3.writer_wait"):
+                self._q.put(None)
+                self._t.join()
         self._check()
 
 
@@ -105,7 +114,8 @@ def prefetch_iter(src, depth: int = 2):
 
     Order is kept; an exception of the source is raised at the consuming
     point, after every item read before it.  Abandoning the generator stops
-    the thread at the source's next item."""
+    the thread at the source's next item.  The thread runs in a copy of the
+    consumer's context, so its spans belong to the consumer's call."""
     q: queue.Queue = queue.Queue(maxsize=depth)
     stop = threading.Event()
 
@@ -125,11 +135,12 @@ def prefetch_iter(src, depth: int = 2):
             if not stop.is_set():
                 q.put((True, e))
 
-    t = threading.Thread(target=run, daemon=True)
+    t = threading.Thread(target=contextvars.copy_context().run, args=(run,), daemon=True)
     t.start()
     try:
         while True:
-            kind, val = q.get()
+            with span("x3.prefetch_wait"):
+                kind, val = q.get()
             if kind is None:
                 return
             if kind:

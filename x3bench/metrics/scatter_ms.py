@@ -1,0 +1,9 @@
+"""scatter_ms.<direction>: ms a call in the program's x3.decode.scatter
+spans (the outputs' allocation, then each batch's copy into them), self
+time, over the untraced window's calls (x3bench/spans.py)."""
+
+from x3bench import spans
+
+
+def read(run):
+    return spans.ms_a_call(run, "x3.decode.scatter")
