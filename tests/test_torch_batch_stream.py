@@ -365,6 +365,65 @@ def test_decode_streams_like_x3_tpu(tmp_path, case, batch):
         assert got[1] == ("FrameHeaderInvalidPayloadCRC", "archive 4 frame 1 payload CRC mismatch")
 
 
+# (archives of the batch set, batch_frames, damage, the copy that raises,
+# batches): archive 3 has 6 TINY frames; the whole set is two groups.
+SCATTER_CASES = {
+    "one-batch": ([3], None, "clean", None, 1),
+    "one-batch-crc": ([3], None, "crc", None, 1),
+    "one-archive-batches-of-2": ([3], 2, "clean", None, 3),
+    "mixed-archives-batches-of-3": ([0, 1, 2, 3, 4, 5], 3, "clean", None, 6),
+    "mixed-decode-then-crc-in-a-later-group": ([0, 1, 2, 3, 4, 5], 3, "decode-then-crc-in-a-later-group", None, 6),
+    "mixed-crc-then-header": ([0, 1, 2, 3, 4, 5], 3, "crc-then-header", None, 2),
+    "copy-raises-one-batch": ([3], None, "clean", 0, 1),
+    "copy-raises-batches-of-2": ([3], 2, "clean", 1, 3),
+    "copy-raises-decode-then-crc": ([0, 1, 2, 3, 4, 5], 3, "decode-then-crc", 0, 6),
+}
+
+
+@pytest.mark.parametrize("case", list(SCATTER_CASES))
+def test_decode_streams_scatter_worker(tmp_path, monkeypatch, case):
+    """decode_streams copies a batch into the outputs on a scatter worker
+    where the call has two or more batches, and on the caller's thread,
+    with no worker, where it has one: outputs and errors equal x3_tpu's
+    either way; an error of a copy is raised by the call, before any CRC
+    or decode error; and no thread outlives the call."""
+    import threading
+
+    from x3_tpu import multifile as ref
+
+    from x3_tpu_torch import multifile as port
+
+    select, batch, damage, fail_at, n_batches = SCATTER_CASES[case]
+    paths, _ = damaged_batch_set(tmp_path, damage)
+    archives = [paths[i].read_bytes() for i in select]
+    copies, workers = [], []
+    real_scatter, real_writer = port._scatter, port.AsyncWriter
+
+    def scatter(outs, dec, runs):
+        copies.append(threading.get_ident())
+        if len(copies) - 1 == fail_at:
+            raise MemoryError("copy failed")
+        real_scatter(outs, dec, runs)
+
+    def writer(*a, **k):
+        workers.append(real_writer(*a, **k))
+        return workers[-1]
+
+    monkeypatch.setattr(port, "_scatter", scatter)
+    monkeypatch.setattr(port, "AsyncWriter", writer)
+    threads = threading.active_count()
+    got = raised(lambda: [(x.tobytes(), rate) for x, rate in port.decode_streams(archives, batch, device="cpu")])
+    assert threading.active_count() == threads
+    assert len(copies) == n_batches and len(workers) == (n_batches > 1)
+    me = threading.get_ident()
+    assert all((t != me) == (n_batches > 1) for t in copies) and len(set(copies)) == 1
+    if fail_at is not None:
+        assert got == ("raise", ("MemoryError", "copy failed"))
+    else:
+        assert got == raised(lambda: [(x.tobytes(), rate) for x, rate in ref.decode_streams(archives, batch)])
+        assert (got[0] == "ok") == (damage == "clean")
+
+
 @pytest.mark.parametrize("case", ["clean", "decode-then-crc", "crc-then-header"])
 def test_batch_decodes_on_a_mesh_like_x3_tpu(tmp_path, case):
     """With a 2-entry CPU mesh (batches of 3 rounded to 4) both batch

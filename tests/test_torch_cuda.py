@@ -834,3 +834,49 @@ def test_decode_spans_on_cuda(cuda):
             counts[k] = counts.get(k, 0) + v
     assert counts["h2d_bytes"] >= sum(len(a) - len(head) for a in arcs) * 0.9
     assert counts["d2h_bytes"] >= 2 * sum(len(x) for x in xs)
+
+
+def test_scatter_worker_on_cuda(cuda):
+    """An EH120-sized decode_streams on the card (36,000,000 samples, 3,600
+    frames of the default Parameters, five batches of 768): every sample
+    equal to the input, which the CPU path decodes bit for bit, and a
+    three-archive call of three batches equal to the CPU path's; the
+    batches' copies run on one scatter worker, and the caller's waits on
+    it (x3.scatter_wait) total less than the copies (x3.decode.scatter)."""
+    import threading
+    import time
+
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import multifile
+    from x3_tpu_torch.utils import profiling
+
+    params = Parameters()
+    S = params.samples_per_frame
+    head = xt.build_archive_header(96000, params)
+    rng = np.random.default_rng(21)
+    full = _mixed(rng, 5 * S + 11)
+    small = [full[: 3 * S + 11], full[:1], full[3 * S + 11 :]]
+    arcs = [head + xt.encode(x, params, device=cuda).data for x in small]
+    got = multifile.decode_streams(arcs, batch_frames=2, device=cuda)
+    want = multifile.decode_streams(arcs, batch_frames=2, device="cpu")
+    assert [(g.tobytes(), r) for g, r in got] == [(w.tobytes(), r) for w, r in want]
+
+    x = _mixed(rng, 3600 * S)
+    arc = head + xt.encode(x, params, device=cuda).data
+    multifile.decode_streams([arc], device=cuda)  # warm
+    threads = threading.active_count()
+    t0 = time.perf_counter_ns()
+    (out, rate), = multifile.decode_streams([arc], device=cuda)
+    assert threading.active_count() == threads
+    assert rate == 96000 and np.array_equal(out, x)
+    me = threading.get_ident()
+    log = [s for s in profiling.spans(t0) if s.start_ns >= t0]
+    root, = [s for s in log if s.name == "x3.decode_streams" and s.thread == me]
+    mine = [s for s in log if s.call == root.id]
+    copies = [s for s in mine if s.name == "x3.decode.scatter" and s.counts["bytes"]]
+    waits = [s for s in mine if s.name == "x3.scatter_wait"]
+    assert len(copies) == 5 and len({s.thread for s in copies}) == 1 and copies[0].thread != me
+    assert sum(s.counts["bytes"] for s in copies) == out.nbytes
+    assert waits and all(s.thread == me for s in waits)
+    scatter_ns = sum(s.end_ns - s.start_ns for s in mine if s.name == "x3.decode.scatter")
+    assert sum(s.end_ns - s.start_ns for s in waits) < scatter_ns

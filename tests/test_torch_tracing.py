@@ -21,7 +21,8 @@ from x3_tpu_torch.utils.io import AsyncWriter, prefetch_iter
 
 PRM = xt.Parameters(block_len=4, blocks_per_frame=8)
 DECODE_SPANS = {"x3.decode_streams", "x3.decode.index", "x3.decode.worklist", "x3.decode.scatter",
-                "x3.prefetch_wait", "x3.decode.stage", "x3.pool_wait", "x3.decode.launch"}
+                "x3.prefetch_wait", "x3.decode.stage", "x3.pool_wait", "x3.decode.launch",
+                "x3.scatter_wait"}  # the spans of a call of two or more batches
 
 
 def _archives(lengths, seed=0):
@@ -46,9 +47,12 @@ def _call_spans(fn):
 def test_decode_streams_span_tree():
     """One CPU call over four archives (two batches of 8 frames): every span
     that runs on the CPU, one call id, parents as the code nests them, the
-    stage on the read-ahead thread under the caller's call, and the counts."""
+    stage on the read-ahead thread and the batches' copies on the scatter
+    worker under the caller's call, and the counts."""
     xs, arcs = _archives([100, 1, 0, 333])
+    threads = threading.active_count()
     out, root, kids = _call_spans(lambda: multifile.decode_streams(arcs, batch_frames=8, device="cpu"))
+    assert threading.active_count() == threads
     for (got, _), x in zip(out, xs):
         np.testing.assert_array_equal(got, x)
     assert root.name == "x3.decode_streams" and root.call == root.id
@@ -61,22 +65,48 @@ def test_decode_streams_span_tree():
     assert {s.call for s in kids} == {root.id}
     stages = {s.id for s in by["x3.decode.stage"]}
     me = threading.get_ident()
+    alloc, *copies = by["x3.decode.scatter"]  # in the order they ended
+    worker = {s.thread for s in copies}
+    assert len(worker) == 1 and worker.isdisjoint({me} | {s.thread for s in by["x3.decode.stage"]})
     for s in kids:
         assert s.parent in (stages if s.name == "x3.pool_wait" else {root.id}), s
-        assert s.thread != me or root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns, s
+        assert s.thread not in worker | {me} or root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns, s
     batches = -(-frames // 8)
     assert len(by["x3.decode.index"]) == 1 and by["x3.decode.index"][0].counts == {"archives": 4}
     assert len(by["x3.decode.worklist"]) == 2  # the batches, then decode_runs' buffers
     assert len(by["x3.decode.launch"]) == len(by["x3.decode.stage"]) == len(by["x3.pool_wait"]) == batches
     assert len(by["x3.prefetch_wait"]) == batches + 1  # the last one takes the end of the batches
     assert len(by["x3.decode.scatter"]) == batches + 1  # the outputs' allocation, then each batch
+    assert alloc.thread == me and alloc.counts["bytes"] == 0
+    assert all(a.end_ns <= b.start_ns for a, b in zip(copies, copies[1:]))  # one copy at a time
     assert sum(s.counts["bytes"] for s in by["x3.decode.scatter"]) == 2 * sum(len(x) for x in xs)
+    assert len(by["x3.scatter_wait"]) == batches + 1  # each copy queued, then the last one's wait
     assert all(s.counts["minflt"] >= 0 for s in by["x3.decode.scatter"])
     assert all(s.counts == {"h2d_bytes": 0} for s in by["x3.decode.launch"])  # the CPU copies nothing
     assert sum(s.counts["bytes"] for s in by["x3.decode.stage"]) > 0
     assert {s.thread for s in by["x3.decode.stage"] + by["x3.pool_wait"]} != {me}
-    assert all(s.thread == me for n in ("x3.decode.index", "x3.decode.worklist", "x3.decode.scatter",
+    assert all(s.thread == me for n in ("x3.decode.index", "x3.decode.worklist", "x3.scatter_wait",
                                         "x3.prefetch_wait", "x3.decode.launch") for s in by[n])
+
+
+def test_decode_streams_one_batch_spans():
+    """A call of one batch starts no scatter worker: the outputs'
+    allocation and the batch's copy are x3.decode.scatter spans on the
+    caller's thread, and nothing waits on a worker (no x3.scatter_wait)."""
+    xs, arcs = _archives([100, 1, 0, 33])
+    threads = threading.active_count()
+    out, root, kids = _call_spans(lambda: multifile.decode_streams(arcs, batch_frames=8, device="cpu"))
+    assert threading.active_count() == threads
+    for (got, _), x in zip(out, xs):
+        np.testing.assert_array_equal(got, x)
+    by = {}
+    for s in kids:
+        by.setdefault(s.name, []).append(s)
+    assert set(by) == DECODE_SPANS - {"x3.decode_streams", "x3.scatter_wait"}
+    assert len(by["x3.decode.launch"]) == 1
+    me = threading.get_ident()
+    assert [(s.thread, s.parent, s.counts["bytes"]) for s in by["x3.decode.scatter"]] == [
+        (me, root.id, 0), (me, root.id, 2 * sum(len(x) for x in xs))]
 
 
 def test_two_threads_decoding_at_once():
@@ -296,8 +326,10 @@ def test_readers_of_the_spans():
 
     assert read("index_ms.decode") == pytest.approx(sum(s.end_ns - s.start_ns for s in index) / 2 / 1e6)
     for name in ("scatter_ms.decode", "prefetch_wait_ms.decode", "launch_ms.decode",
-                 "scatter_faults_per_mb.decode"):
+                 "scatter_faults_per_mb.decode", "scatter_wait_ms.decode"):
         assert read(name) >= 0
+    waits = [s for s in members if s.name == "x3.scatter_wait"]
+    assert read("scatter_wait_ms.decode") == pytest.approx(sum(s.end_ns - s.start_ns for s in waits) / 2 / 1e6)
     for name in ("device_wait_ms.decode", "copy_bytes_per_mb.decode", "idle_unnamed_pct.decode"):
         assert read(name) is None  # no event, no copy and no device on the CPU
     assert read("index_ms.encode") is None

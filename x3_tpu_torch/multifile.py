@@ -12,8 +12,9 @@ the samples read back compacted.  multichannel.x3m_to_wav decodes through
 decode_runs too.  device="cpu" runs their plain PyTorch versions.
 decode_streams records its call as spans (utils.profiling): the root
 x3.decode_streams, x3.decode.index, x3.decode.worklist (the batches and
-their host buffers), x3.decode.scatter, and decode_runs' x3.decode.stage
-on the read-ahead thread.
+their host buffers), x3.decode.scatter (on a scatter worker, with
+x3.scatter_wait on the caller's thread, where a call has two or more
+batches), and decode_runs' x3.decode.stage on the read-ahead thread.
 
 The batch defaults are the port's engine.ENCODE_BATCH_FRAMES and
 DECODE_BATCH_FRAMES (768 frames each), in place of x3_tpu's
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import wave
 
 import numpy as np
@@ -321,6 +323,14 @@ def _scatter_span(nbytes: int):
             sp.add(minflt=minor_faults() - faults)
 
 
+def _scatter(outs, dec, runs) -> None:
+    """Copy a batch's decoded samples `dec` into the outputs, one
+    (archive, at, lo, hi) a run: outs[archive][at:] = dec[lo:hi]."""
+    with _scatter_span(dec.nbytes):
+        for ai, at, lo, hi in runs:
+            outs[ai][at : at + hi - lo] = dec[lo:hi]
+
+
 def decode_streams(
     archives,
     batch_frames: int | None = None,
@@ -340,7 +350,13 @@ def decode_streams(
     among the archives before the first one whose header or walk fails,
     then that failure, then the first frame in worklist order that fails to
     decode.  The call returns nothing on an error, so every batch is
-    decoded before the error is chosen."""
+    decoded before the error is chosen.
+
+    With two or more batches, a scatter worker (a thread of the call's
+    own, utils.io.AsyncWriter) copies batch i into the outputs while batch
+    i + 1 is launched; the call waits for its last copy (x3.scatter_wait)
+    and raises its error, if any, before anything else.  One batch is
+    copied on the caller's thread, with no thread started."""
     mesh = check_mesh(mesh, device)
     batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
     with span("x3.decode_streams", archives=len(archives)) as call:
@@ -356,21 +372,32 @@ def decode_streams(
 
         with span("x3.decode.worklist"):
             batches = decode_batches(specs, indexes, batch_frames)
-        with contextlib.closing(decode_runs(batches, read, mesh)) as decoded:
-            for batch, dec, err, crc_ok in decoded:
-                if not crc_ok.all():
-                    j = int(np.argmin(crc_ok))
-                    at = (int(batch.keys[j]), int(batch.frames[j]))
-                    bad_crc = at if bad_crc is None else min(bad_crc, at)
-                if bad_decode is None and err.any():
-                    j = int(np.argmax(err != 0))
-                    bad_decode = (int(batch.keys[j]), int(batch.frames[j]), int(err[j]))
-                with _scatter_span(dec.nbytes):
+        worker = AsyncWriter(None, depth=1, wait_span="x3.scatter_wait") if len(batches) > 1 else None
+        try:
+            with contextlib.closing(decode_runs(batches, read, mesh)) as decoded:
+                for batch, dec, err, crc_ok in decoded:
+                    if not crc_ok.all():
+                        j = int(np.argmin(crc_ok))
+                        at = (int(batch.keys[j]), int(batch.frames[j]))
+                        bad_crc = at if bad_crc is None else min(bad_crc, at)
+                    if bad_decode is None and err.any():
+                        j = int(np.argmax(err != 0))
+                        bad_decode = (int(batch.keys[j]), int(batch.frames[j]), int(err[j]))
                     bounds = np.concatenate([[0], np.cumsum(batch.index.n_samples, dtype=np.int64)])
+                    runs = []
                     for ai, a, b in batch.runs():
-                        n = int(bounds[b] - bounds[a])
-                        outs[ai][done[ai] : done[ai] + n] = dec[bounds[a] : bounds[b]]
-                        done[ai] += n
+                        runs.append((ai, done[ai], int(bounds[a]), int(bounds[b])))
+                        done[ai] += int(bounds[b] - bounds[a])
+                    # The queued copy holds `dec`, so its pinned read-back is
+                    # not reused before the copy is done.
+                    copy = functools.partial(_scatter, outs, dec, runs)
+                    if worker is None:
+                        copy()
+                    else:
+                        worker.call(copy)
+        finally:
+            if worker is not None:
+                worker.close()  # every queued copy done, the thread joined; its error raised
     if bad_crc is not None:
         raise FrameHeaderInvalidPayloadCRC(f"archive {bad_crc[0]} frame {bad_crc[1]} payload CRC mismatch")
     if failure is not None:

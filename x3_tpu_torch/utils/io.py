@@ -46,14 +46,19 @@ class AsyncWriter:
     One writer may serve several files (f=None): a block is then a (file,
     data) pair, and call(fn) queues a function to run on the writer's
     thread after the blocks before it, such as a file's closing, which
-    runs after a write error too."""
+    runs after a write error too.
 
-    def __init__(self, f, depth: int = 2):
+    wait_span: the name of the spans of the producer's waits.  The thread
+    runs in a copy of the creator's context, so the spans of a queued
+    function belong to the creator's call."""
+
+    def __init__(self, f, depth: int = 2, wait_span: str = "x3.writer_wait"):
         self._f = f
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._exc: BaseException | None = None
         self._closed = False
-        self._t = threading.Thread(target=self._run, daemon=True)
+        self._wait = wait_span
+        self._t = threading.Thread(target=contextvars.copy_context().run, args=(self._run,), daemon=True)
         self._t.start()
 
     def _run(self) -> None:
@@ -83,18 +88,18 @@ class AsyncWriter:
 
     def write(self, data) -> None:
         self._check()
-        with span("x3.writer_wait"):
+        with span(self._wait):
             self._q.put(data)
 
     def call(self, fn) -> None:
         """Run fn() on the writer's thread after every block queued before
         it; an exception it raises is raised like a write error."""
-        with span("x3.writer_wait"):
+        with span(self._wait):
             self._q.put(fn)
 
     def drain(self) -> None:
         """Block until every queued block is written; raise a write error."""
-        with span("x3.writer_wait"):
+        with span(self._wait):
             self._q.join()
         self._check()
 
@@ -102,7 +107,7 @@ class AsyncWriter:
         """Drain, stop the thread, and raise any pending write error."""
         if not self._closed:
             self._closed = True
-            with span("x3.writer_wait"):
+            with span(self._wait):
                 self._q.put(None)
                 self._t.join()
         self._check()

@@ -2,10 +2,11 @@
 
 * `span(name, **counts)` — a named, timed region, always recorded in
   memory (`RECORDER`): the spans of one call share the id of its outermost
-  span and each names its parent, across the read-ahead thread too.  While
-  a torch profiler runs (or `torch.autograd.profiler.emit_nvtx`), each span
-  also enters a `record_function` of its name, so it shows in `trace()`'s
-  Chrome trace and in NVTX;
+  span and each names its parent, across the read-ahead thread and the
+  scatter worker too.  While a torch profiler runs (or
+  `torch.autograd.profiler.emit_nvtx`), each span also enters a
+  `record_function` of its name, so it shows in `trace()`'s Chrome trace
+  and in NVTX;
 * `spans(since_ns)` and `counters()` — snapshots of the recorded spans and
   of the running totals by name, and `profiler_ns(t)` — a span's clock
   (`time.perf_counter_ns`) on the profiler's (Unix nanoseconds);
@@ -25,7 +26,12 @@ The spans the port records and what each covers:
   x3.decode.worklist  its frames cut into batches (multifile.decode_batches),
                       and decode_runs' host buffers for them
   x3.decode.scatter   the outputs' allocation, then each batch's copy into
-                      them (bytes; minflt: the thread's minor page faults)
+                      them (bytes; minflt: the thread's minor page faults);
+                      with two or more batches a call's copies run on its
+                      scatter worker, the allocation on the caller's thread
+  x3.scatter_wait     the caller on the scatter worker: each copy queued
+                      (blocked while the one before is still queued), and
+                      the wait for the last copy before the call returns
   x3.decode.stage     multifile.decode_runs, a batch's runs copied into its
                       host buffer on the read-ahead thread (bytes)
   x3.pool_wait        models.staging.BufferPool.acquire
@@ -36,7 +42,8 @@ The spans the port records and what each covers:
   x3.prefetch_wait    utils.io.prefetch_iter, the consumer blocked on the
                       read-ahead queue
   x3.writer_wait      utils.io.AsyncWriter, the producer blocked on the
-                      writer's queue or its drain
+                      writer's queue or its drain (the scatter worker's
+                      waits are x3.scatter_wait)
   x3.kernels.build    ops._build.load, one kernel library built (built: nvcc
                       ran) and loaded (loaded)
 """
