@@ -424,6 +424,289 @@ def test_decode_streams_scatter_worker(tmp_path, monkeypatch, case):
         assert (got[0] == "ok") == (damage == "clean")
 
 
+# ---- decode_streams' large outputs on recycled pages (utils.outpool) ----
+
+POOL_MIN = 64  # bytes: the threshold the tests set, so outputs of 32 samples or more are pooled
+
+
+@pytest.fixture
+def pool(monkeypatch):
+    """A pool of its own for the test, which takes every output of
+    POOL_MIN bytes or more: archives 0, 3, 4 and 5 of the batch set."""
+    from x3_tpu_torch.utils import outpool
+
+    monkeypatch.setattr(outpool, "THRESHOLD_BYTES", POOL_MIN)
+    monkeypatch.setattr(outpool, "POOL", outpool.OutputPool())
+    return outpool.POOL
+
+
+def _pooled_call(fn):
+    """raised(fn) and the (pooled_bytes, reused_bytes) of the allocation
+    of the one decode_streams call fn makes on this thread."""
+    import threading
+    import time
+
+    from x3_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter_ns()
+    res = raised(fn)
+    me = threading.get_ident()
+    alloc, = [s for s in profiling.spans(t0) if s.start_ns >= t0 and s.thread == me and "pooled_bytes" in s.counts]
+    return res, (alloc.counts["pooled_bytes"], alloc.counts["reused_bytes"])
+
+
+def _pooled_bytes(arrays) -> int:
+    return sum(2 * len(a) for a in arrays if 2 * len(a) >= POOL_MIN)
+
+
+@pytest.mark.parametrize("batch", [1, 3, None])
+def test_decode_streams_reuses_a_dropped_output(tmp_path, pool, batch):
+    """The first call maps a block for each output of 32 samples or more;
+    once its outputs are dropped, a second call gets each block back at
+    the same address, every byte counted as reused; both calls give
+    x3_tpu's outputs."""
+    from x3_tpu import multifile as ref
+
+    from x3_tpu_torch import multifile as port
+
+    paths, arrays = _batch_set(tmp_path)
+    archives = [p.read_bytes() for p in paths]
+    want = [(x.tobytes(), rate) for x, rate in ref.decode_streams(archives, batch)]
+    pooled = _pooled_bytes(arrays)
+    (_, got), counts = _pooled_call(lambda: port.decode_streams(archives, batch, device="cpu"))
+    assert counts == (pooled, 0) and pool.free_bytes == 0
+    assert [(x.tobytes(), rate) for x, rate in got] == want
+    at = [x.ctypes.data for x, _ in got if x.base is not None]
+    assert len(at) == 4
+    del got
+    assert pool.free_bytes == pooled
+    (_, got), counts = _pooled_call(lambda: port.decode_streams(archives, batch, device="cpu"))
+    assert counts == (pooled, pooled) and pool.free_bytes == 0
+    assert [(x.tobytes(), rate) for x, rate in got] == want
+    assert [x.ctypes.data for x, _ in got if x.base is not None] == at
+    for x, _ in got:
+        assert x.dtype == np.int16 and x.flags.c_contiguous and x.flags.writeable and x.ndim == 1
+
+
+HELD_VIEWS = {
+    "every-other": lambda x: x[::2],
+    "reshape": lambda x: x.reshape(-1, 1),
+    "memoryview": memoryview,
+    "torch": lambda x: __import__("torch").from_numpy(x),
+}
+
+
+@pytest.mark.parametrize("view", list(HELD_VIEWS))
+def test_decode_streams_never_reuses_a_held_output(tmp_path, pool, view):
+    """A view, reshape or buffer of an output held after the output itself
+    is dropped keeps its block out of the pool: the next call maps a new
+    one, shares no memory with the view, and the view's values stay as
+    they were; once the view goes, its block serves the call after."""
+    from x3_tpu_torch import multifile as port
+
+    paths, arrays = _batch_set(tmp_path)
+    archives = [paths[3].read_bytes()]  # 191 samples, 6 frames: 3 batches of 2
+    (_, [(out, _)]), _ = _pooled_call(lambda: port.decode_streams(archives, 2, device="cpu"))
+    held = HELD_VIEWS[view](out)
+    kept = np.asarray(held).copy()
+    del out
+    assert pool.free_bytes == 0
+    (_, [(second, _)]), counts = _pooled_call(lambda: port.decode_streams(archives, 2, device="cpu"))
+    assert counts == (2 * len(arrays[3]), 0)
+    assert not np.shares_memory(np.asarray(held), second)
+    assert np.array_equal(np.asarray(held), kept) and np.array_equal(second, arrays[3])
+    second[:] = -1  # a write to the new block does not reach the held view
+    assert np.array_equal(np.asarray(held), kept)
+    del held
+    assert pool.free_bytes == 2 * len(arrays[3])
+    (_, [(third, _)]), counts = _pooled_call(lambda: port.decode_streams(archives, 2, device="cpu"))
+    assert counts == (2 * len(arrays[3]),) * 2
+    assert np.array_equal(third, arrays[3]) and not np.shares_memory(third, second)
+
+
+def test_decode_streams_pool_across_threads_and_its_cap(tmp_path, pool):
+    """Outputs whose last reference goes on another thread give their
+    blocks back there; the pool keeps free blocks only up to the bytes of
+    the most recent call, so of two calls' outputs dropped one after the
+    other, the second's blocks are unmapped: a call gets the first's back,
+    and the call after it, with that one held, maps new blocks.  A call
+    whose outputs are all under the threshold lets go of every free block."""
+    import threading
+
+    from x3_tpu_torch import multifile as port
+
+    paths, arrays = _batch_set(tmp_path)
+    archives = [p.read_bytes() for p in paths]
+    pooled = _pooled_bytes(arrays)
+    first = [port.decode_streams(archives, 3, device="cpu")]
+    second = port.decode_streams(archives, 3, device="cpu")
+    dropper = threading.Thread(target=first.clear)
+    dropper.start()
+    dropper.join()
+    assert pool.free_bytes == pooled
+    del second
+    assert pool.free_bytes == pooled  # the cap: one call's bytes
+    (_, third), counts = _pooled_call(lambda: port.decode_streams(archives, 3, device="cpu"))
+    assert counts == (pooled, pooled) and pool.free_bytes == 0
+    (_, fourth), counts = _pooled_call(lambda: port.decode_streams(archives, 3, device="cpu"))
+    assert counts == (pooled, 0)
+    for (x, _), (y, _), a in zip(third, fourth, arrays):
+        assert np.array_equal(x, a) and np.array_equal(y, a) and not np.shares_memory(x, y)
+    del third, fourth, x, y
+    assert pool.free_bytes == pooled
+    (_, small), counts = _pooled_call(lambda: port.decode_streams(archives[1:3], 3, device="cpu"))
+    assert counts == (0, 0) and pool.free_bytes == 0  # a call with nothing pooled keeps nothing
+    assert [x.tobytes() for x, _ in small] == [a.tobytes() for a in arrays[1:3]]
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_decode_streams_small_outputs_skip_the_pool(tmp_path, batch):
+    """At the module's threshold (32 MiB) the batch set's outputs are
+    np.empty's own arrays, and the allocation counts no pooled bytes."""
+    from x3_tpu_torch import multifile as port
+    from x3_tpu_torch.utils import outpool
+
+    assert outpool.THRESHOLD_BYTES == 32 << 20
+    paths, arrays = _batch_set(tmp_path)
+    archives = [p.read_bytes() for p in paths]
+    (_, got), counts = _pooled_call(lambda: port.decode_streams(archives, batch, device="cpu"))
+    assert counts == (0, 0)
+    for (x, _), a in zip(got, arrays):
+        assert x.base is None and x.flags.owndata and np.array_equal(x, a)
+
+
+@pytest.mark.parametrize("view", list(HELD_VIEWS))
+def test_pooled_output_is_an_array_over_a_mapping(pool, view):
+    """A pooled output is np.frombuffer over an mmap.mmap, a type that
+    exports its buffer from C on every Python the package takes: no class
+    of the pool's own defines __buffer__.  The output's finalizer returns
+    the block, so what the reuse rule rests on is that every view, reshape
+    and buffer of the output holds the output itself, not only the mapping."""
+    import gc
+    import mmap
+
+    from x3_tpu_torch.utils import outpool
+
+    assert not [c for c in vars(outpool).values() if isinstance(c, type) and "__buffer__" in vars(c)]
+    [out], pooled, reused = pool.take([100])
+    assert (pooled, reused) == (200, 0) and type(out) is np.ndarray
+    owner = out.base.obj if isinstance(out.base, memoryview) else out.base
+    assert type(owner) is mmap.mmap and not out.flags.owndata
+    for v in (out[::2], out.reshape(-1, 1), out[1:][::3], out.view(np.uint16)):
+        assert v.base is out
+    held = HELD_VIEWS[view](out[3:])
+    out[:] = 7
+    del out, v
+    gc.collect()
+    assert pool.free_bytes == 0  # the view holds the block
+    del held
+    assert pool.free_bytes == 200
+
+
+def test_output_pool_resident_memory(pool):
+    """What stays resident after a call's large outputs are dropped, read
+    from /proc/self/statm: eight outputs of 8 MiB, filled as the scatter
+    fills them, stay mapped once dropped (64 MiB, one call's bytes); a
+    take of one output keeps one free block beside it and lets go of six;
+    a take of only small outputs lets go of the rest."""
+    import os
+
+    mib = 1 << 20
+
+    def rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def near(grown: int, want_mib: int) -> bool:
+        return abs(grown - want_mib * mib) <= 6 * mib
+
+    base = rss()
+    outs, pooled, _ = pool.take([4 * mib] * 8)
+    for out in outs:
+        out[:] = 1
+    assert pooled == 64 * mib and near(rss() - base, 64)
+    del outs, out
+    assert pool.free_bytes == 64 * mib and near(rss() - base, 64)
+    [one], _, reused = pool.take([4 * mib])
+    assert reused == 8 * mib and (one == 1).all()
+    assert pool.free_bytes == 8 * mib and near(rss() - base, 16)
+    del one
+    assert pool.free_bytes == 8 * mib and near(rss() - base, 8)
+    [small], pooled, _ = pool.take([10])
+    assert pooled == 0 and pool.free_bytes == 0 and near(rss() - base, 0)
+
+
+def test_output_pool_under_threads(pool):
+    """Thirty-two threads take, fill, check and drop pooled outputs of a few
+    sizes at once, with a short switch interval, each holding its last
+    three: no live output ever shares a block with another (each keeps
+    its fill), and the pool's count of free bytes ends equal to its free
+    blocks' bytes, within one take's."""
+    import sys
+    import threading
+
+    sizes = [40, 56, 64, 100]  # samples: best fits within twice the size and outside it
+    errors = []
+
+    def body(k):
+        try:
+            held = []
+            for i in range(200):
+                n = sizes[(k + i) % len(sizes)]
+                [out], pooled, reused = pool.take([n])
+                assert pooled == 2 * n and reused in (0, pooled)
+                out[:] = k * 100 + i
+                held.append((out, k * 100 + i))
+                if len(held) > 3:
+                    held.pop(0)
+                for x, v in held:
+                    assert (x == v).all()
+        except BaseException as e:  # noqa: BLE001 - re-raised on the test's thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=body, args=(k,)) for k in range(32)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert pool.free_bytes == sum(len(mm) for mm in pool._free) <= 2 * max(sizes)
+
+
+@pytest.mark.parametrize("case", [c for c, v in SCATTER_CASES.items() if v[2] != "clean" and v[3] is None])
+def test_decode_streams_errors_with_the_pool(tmp_path, pool, case):
+    """The damaged cases of test_decode_streams_scatter_worker with every
+    output of 32 samples or more pooled: the raised class and message are
+    x3_tpu's; the failed call's blocks come back to the pool, and the next
+    call on the clean archives, served from them, gives x3_tpu's outputs
+    (no sample of the failed call shows)."""
+    import gc
+
+    from x3_tpu import multifile as ref
+
+    from x3_tpu_torch import multifile as port
+
+    select, batch, damage, _, _ = SCATTER_CASES[case]
+    for d in ("damaged", "clean"):
+        (tmp_path / d).mkdir()
+    paths, arrays = damaged_batch_set(tmp_path / "damaged", damage)
+    archives = [paths[i].read_bytes() for i in select]
+    got, (pooled, _) = _pooled_call(lambda: [x.tobytes() for x, _ in port.decode_streams(archives, batch, device="cpu")])
+    assert got[0] == "raise" and got == raised(lambda: [x.tobytes() for x, _ in ref.decode_streams(archives, batch)])
+    gc.collect()
+    assert pooled > 0 and pool.free_bytes == pooled
+    clean, _ = _batch_set(tmp_path / "clean")
+    archives = [clean[i].read_bytes() for i in select]
+    (_, out), counts = _pooled_call(lambda: port.decode_streams(archives, batch, device="cpu"))
+    assert counts == (_pooled_bytes([arrays[i] for i in select]), pooled)
+    assert [x.tobytes() for x, _ in out] == [arrays[i].tobytes() for i in select]
+
+
 @pytest.mark.parametrize("case", ["clean", "decode-then-crc", "crc-then-header"])
 def test_batch_decodes_on_a_mesh_like_x3_tpu(tmp_path, case):
     """With a 2-entry CPU mesh (batches of 3 rounded to 4) both batch

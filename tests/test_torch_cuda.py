@@ -880,3 +880,42 @@ def test_scatter_worker_on_cuda(cuda):
     assert waits and all(s.thread == me for s in waits)
     scatter_ns = sum(s.end_ns - s.start_ns for s in mine if s.name == "x3.decode.scatter")
     assert sum(s.end_ns - s.start_ns for s in waits) < scatter_ns
+
+
+def test_output_pool_on_cuda(cuda, monkeypatch):
+    """An EH120-sized decode_streams (3,600 frames, five batches) three
+    times on the card, each output dropped before the next call: the first
+    maps a 72 MB block, the second and third get it back (reused_bytes
+    their bytes), and each equals the input.  A view held across a call
+    keeps its values, and that call maps a block of its own."""
+    import threading
+    import time
+
+    import x3_tpu_torch as xt
+    from x3_tpu_torch import multifile
+    from x3_tpu_torch.utils import outpool, profiling
+
+    monkeypatch.setattr(outpool, "POOL", outpool.OutputPool())
+    params = Parameters()
+    x = _mixed(np.random.default_rng(24), 3600 * params.samples_per_frame)
+    arc = xt.build_archive_header(96000, params) + xt.encode(x, params, device=cuda).data
+    counts, me = [], threading.get_ident()
+
+    def call():
+        t0 = time.perf_counter_ns()
+        (out, rate), = multifile.decode_streams([arc], device=cuda)
+        alloc, = [s for s in profiling.spans(t0) if s.start_ns >= t0 and s.thread == me and "pooled_bytes" in s.counts]
+        counts.append((alloc.counts["pooled_bytes"], alloc.counts["reused_bytes"]))
+        assert rate == 96000
+        return out
+
+    for _ in range(3):
+        out = call()
+        assert np.array_equal(out, x)
+        del out
+    assert counts == [(x.nbytes, 0), (x.nbytes, x.nbytes), (x.nbytes, x.nbytes)]
+    held = call()[1::2]  # the output itself is dropped here
+    kept = held.copy()
+    out = call()
+    assert counts[3:] == [(x.nbytes, x.nbytes), (x.nbytes, 0)]
+    assert not np.shares_memory(out, held) and np.array_equal(held, kept) and np.array_equal(out, x)

@@ -78,6 +78,7 @@ def test_decode_streams_span_tree():
     assert len(by["x3.prefetch_wait"]) == batches + 1  # the last one takes the end of the batches
     assert len(by["x3.decode.scatter"]) == batches + 1  # the outputs' allocation, then each batch
     assert alloc.thread == me and alloc.counts["bytes"] == 0
+    assert alloc.counts["pooled_bytes"] == alloc.counts["reused_bytes"] == 0  # every output under 32 MiB
     assert all(a.end_ns <= b.start_ns for a, b in zip(copies, copies[1:]))  # one copy at a time
     assert sum(s.counts["bytes"] for s in by["x3.decode.scatter"]) == 2 * sum(len(x) for x in xs)
     assert len(by["x3.scatter_wait"]) == batches + 1  # each copy queued, then the last one's wait
@@ -305,13 +306,18 @@ class _Trace:
         return sum(b - a for a, b in self.device)
 
 
-def test_readers_of_the_spans():
+def test_readers_of_the_spans(monkeypatch):
     """The benchmark's span readers on a CPU decode window: ms a call as
     the self time over the window's roots, counts per byte decoded, the
+    share of output bytes on recycled pages (the pool's threshold set to
+    64 bytes: the second call reuses the first's two larger outputs), the
     unnamed share of the device's idle time, and None with nothing to read."""
+    from x3_tpu_torch.utils import outpool
     from x3bench import harness
     from x3bench import spans as xs
 
+    monkeypatch.setattr(outpool, "THRESHOLD_BYTES", 64)
+    monkeypatch.setattr(outpool, "POOL", outpool.OutputPool())
     _, arcs = _archives([400, 90, 7], seed=3)
     start = time.perf_counter()
     for _ in range(2):
@@ -332,9 +338,11 @@ def test_readers_of_the_spans():
     assert read("scatter_wait_ms.decode") == pytest.approx(sum(s.end_ns - s.start_ns for s in waits) / 2 / 1e6)
     for name in ("device_wait_ms.decode", "copy_bytes_per_mb.decode", "idle_unnamed_pct.decode"):
         assert read(name) is None  # no event, no copy and no device on the CPU
+    assert read("out_reuse_pct.decode") == pytest.approx(100 * (800 + 180) / (2 * 2 * (400 + 90 + 7)))
     assert read("index_ms.encode") is None
     empty = harness.Run(direction="decode", start=0.0, end=1e-3, trace=None)  # long before any call
-    assert harness.load_reader("launch_ms.decode")(empty) is None
+    for name in ("launch_ms.decode", "out_reuse_pct.decode"):
+        assert harness.load_reader(name)(empty) is None
 
     # A root from 0 to 10 ms with children at 1-3 and 2-4 ms: 7 ms of self time.
     S = profiling.Span

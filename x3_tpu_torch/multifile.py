@@ -12,9 +12,11 @@ the samples read back compacted.  multichannel.x3m_to_wav decodes through
 decode_runs too.  device="cpu" runs their plain PyTorch versions.
 decode_streams records its call as spans (utils.profiling): the root
 x3.decode_streams, x3.decode.index, x3.decode.worklist (the batches and
-their host buffers), x3.decode.scatter (on a scatter worker, with
-x3.scatter_wait on the caller's thread, where a call has two or more
-batches), and decode_runs' x3.decode.stage on the read-ahead thread.
+their host buffers), x3.decode.scatter (the outputs' allocation, with
+the bytes of those that come from utils.outpool's recycled pages; then
+each batch's copy, on a scatter worker, with x3.scatter_wait on the
+caller's thread, where a call has two or more batches), and decode_runs'
+x3.decode.stage on the read-ahead thread.
 
 The batch defaults are the port's engine.ENCODE_BATCH_FRAMES and
 DECODE_BATCH_FRAMES (768 frames each), in place of x3_tpu's
@@ -42,6 +44,7 @@ from .models.sharding import check_mesh
 from .models.staging import BufferPool, StagingPool, host_empty
 from .params import Parameters
 from .streaming import check_mono16
+from .utils import outpool
 from .utils.io import AsyncWriter, open_overwrite, prefetch_iter
 from .utils.profiling import minor_faults, span
 from .utils.wav import WavWriter
@@ -314,11 +317,11 @@ def _index_streams(archives):
 @contextlib.contextmanager
 def _scatter_span(nbytes: int):
     """An x3.decode.scatter span of `nbytes` copied into the outputs, with
-    the thread's minor page faults over it (minflt)."""
+    the thread's minor page faults over it (minflt); it yields the span."""
     faults = minor_faults()
     with span("x3.decode.scatter", bytes=nbytes) as sp:
         try:
-            yield
+            yield sp
         finally:
             sp.add(minflt=minor_faults() - faults)
 
@@ -356,14 +359,23 @@ def decode_streams(
     own, utils.io.AsyncWriter) copies batch i into the outputs while batch
     i + 1 is launched; the call waits for its last copy (x3.scatter_wait)
     and raises its error, if any, before anything else.  One batch is
-    copied on the caller's thread, with no thread started."""
+    copied on the caller's thread, with no thread started.
+
+    An output of utils.outpool.THRESHOLD_BYTES (32 MiB) or more comes from
+    utils.outpool: the warm pages of an earlier output that nothing
+    references any more where the pool holds them, else a new mapping.
+    Every sample of every output is written before the call returns.
+    Once the caller drops a call's outputs, up to that call's bytes of
+    such outputs stay mapped (resident) until the next call, which keeps
+    only as many as it takes itself."""
     mesh = check_mesh(mesh, device)
     batch_frames = _round_to_mesh(resolve_batch_frames(batch_frames, "torch", decode=True), mesh)
     with span("x3.decode_streams", archives=len(archives)) as call:
         specs, indexes, failure = _index_streams(archives)
         call.add(frames=sum(len(ix) for ix in indexes))
-        with _scatter_span(0):
-            outs = [np.empty(int(ix.n_samples.sum(dtype=np.int64)), np.int16) for ix in indexes]
+        with _scatter_span(0) as alloc:
+            outs, pooled, reused = outpool.POOL.take([int(ix.n_samples.sum(dtype=np.int64)) for ix in indexes])
+            alloc.add(pooled_bytes=pooled, reused_bytes=reused)
         done = [0] * len(indexes)
         bad_crc, bad_decode = None, None  # (archive, frame) of the first; (archive, frame, code)
 

@@ -28,7 +28,10 @@ The spans the port records and what each covers:
   x3.decode.scatter   the outputs' allocation, then each batch's copy into
                       them (bytes; minflt: the thread's minor page faults);
                       with two or more batches a call's copies run on its
-                      scatter worker, the allocation on the caller's thread
+                      scatter worker, the allocation on the caller's thread.
+                      The allocation's pooled_bytes: output bytes taken
+                      from utils.outpool (outputs of 32 MiB or more);
+                      reused_bytes: those of them on a recycled mapping
   x3.scatter_wait     the caller on the scatter worker: each copy queued
                       (blocked while the one before is still queued), and
                       the wait for the last copy before the call returns
