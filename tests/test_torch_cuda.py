@@ -725,8 +725,9 @@ def test_submit_and_upload_never_block(cuda):
     synchronisation: under set_sync_debug_mode("error") a blocking copy or
     read raises."""
     from x3_tpu_torch.models import decoder, encoder
-    from x3_tpu_torch.models.sharding import Mesh
+    from x3_tpu_torch.models.sharding import Mesh, shard_map
     from x3_tpu_torch.models.staging import StagingPool
+    from x3_tpu_torch.ops.decode_kernel import decode_words_checked
 
     params = Parameters()
     S = params.samples_per_frame
@@ -755,8 +756,9 @@ def test_submit_and_upload_never_block(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        data, offsets, lengths = decoder._join(payloads, cuda)
-        out, err, crc, ns = decoder._walk(data, offsets, lengths, counts, params, True, Mesh([cuda]))
+        words, ns, plens, n_blocks = decoder.upload_span(*decoder._join(payloads, cuda), counts, params, cuda)
+        out, err, crc = shard_map(lambda w, n, pl: decode_words_checked(w, n, pl, params, n_blocks),
+                                  Mesh([cuda]), words, ns, plens)
         flat = decoder.compact_frames(out, ns[:16], 16 * S)
     finally:
         torch.cuda.set_sync_debug_mode(0)

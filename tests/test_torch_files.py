@@ -424,6 +424,100 @@ def test_reader_cache_stays_bounded_with_damage_in_every_batch(arch, tmp_path):
         assert outcome(lambda: r.decode_frame_at(1)) == ("raise", "FrameHeaderInvalidPayloadCRC")
 
 
+class _CountingFile:
+    """An open archive that logs each read as (method, file offset, bytes
+    asked)."""
+
+    def __init__(self, f, log):
+        self._f, self._log = f, log
+
+    def readinto(self, b):
+        self._log.append(("readinto", self._f.tell(), len(b)))
+        return self._f.readinto(b)
+
+    def read(self, n=-1):
+        self._log.append(("read", self._f.tell(), n))
+        return self._f.read(n)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._f.close()
+
+
+def _runs_of(entries, batch: int):
+    """(offset, bytes) of each run of contiguous frames in each batch of a
+    walk's entries: from the run's first payload to its last one's end."""
+    runs = []
+    for b in range(0, len(entries), batch):
+        first = len(runs)
+        for off, h in entries[b : b + batch]:
+            if len(runs) > first and sum(runs[-1]) == off - 20:  # the header follows the last payload
+                runs[-1] = (runs[-1][0], off + h.payload_len - runs[-1][0])
+            else:
+                runs.append((off, h.payload_len))
+    return runs
+
+
+@pytest.mark.parametrize("entry", ["decode_frame_at", "verify_x3a", "resync"])
+def test_batches_read_one_readinto_a_run(arch, tmp_path, monkeypatch, entry):
+    """X3aReader.decode_frame_at, verify_x3a and x3a_to_wav(resync=True) on
+    an archive with garbage between frames 1 and 2 read each batch with one
+    readinto a run of contiguous frames (the scanner's skip cuts a run, and
+    its bytes are not read), and give x3_tpu's outcome.  X3aReader cannot
+    open that archive: it raises x3_tpu's class and message after its
+    sequential index pass, with no read a frame; its batches are read on
+    the clean archive."""
+    import builtins
+
+    from x3_tpu import archive as ref_archive
+    from x3_tpu import files as ref
+
+    from x3_tpu_torch import files as port
+
+    log = []
+    monkeypatch.setattr(port, "open", lambda *a, **k: _CountingFile(builtins.open(*a, **k), log), raising=False)
+    src = _archive(arch, "garbage-between", tmp_path)
+    data = src.read_bytes()
+    reads = lambda: [(o, n) for m, o, n in log if m == "readinto"]  # noqa: E731
+    if entry == "verify_x3a":
+        got = port.verify_x3a(src, batch_frames=4, device="cpu")
+        want = ref.verify_x3a(src, engine="numpy", batch_frames=4)
+        assert (got.pop("engine"), want.pop("engine")) == ("torch", "numpy") and got == want
+        assert got["skipped_bytes"] == 42
+    elif entry == "resync":
+        got = _decode_outcome(lambda: port.x3a_to_wav(src, tmp_path / "port.wav", resync=True, batch_frames=4,
+                                                      device="cpu"), tmp_path / "port.wav")
+        assert got == _decode_outcome(lambda: ref.x3a_to_wav(src, tmp_path / "ref.wav", engine="numpy",
+                                                             resync=True, batch_frames=4), tmp_path / "ref.wav")
+        assert got[:2] == ("ok", 0)
+    if entry != "decode_frame_at":
+        entries = list(ref_archive.walk_frames(data, arch["hdr_end"], resync=True))
+        assert reads() == _runs_of(entries, 4) and len(reads()) == -(-N_FRAMES // 4) + 1
+        return
+    def raised(fn):
+        with pytest.raises(Exception) as e:  # noqa: PT011 - the class and message are compared
+            fn()
+        return type(e.value).__name__, str(e.value)
+
+    got = raised(lambda: port.X3aReader(src, batch_frames=4, device="cpu"))
+    assert got == raised(lambda: ref.X3aReader(src, "numpy", 4))
+    assert got[0] == "FrameHeaderInvalidHeaderCRC"
+    assert [m for m, _, _ in log].count("read") == 2  # the archive header's
+    src = _archive(arch, "clean", tmp_path)
+    with port.X3aReader(src, batch_frames=4, device="cpu") as r, ref.X3aReader(src, "numpy", 4) as w:
+        del log[:]
+        for i in (5, 0, N_FRAMES - 1, 3):
+            np.testing.assert_array_equal(r.decode_frame_at(i), w.decode_frame_at(i))
+    assert not [m for m, _, _ in log if m != "readinto"]
+    runs = _runs_of(arch["idx"], 4)
+    assert reads() == [runs[1], runs[0], runs[2], runs[0]]
+
+
 # ---- StreamEncoder, wav_to_x3a_streaming and the channel types ----
 
 

@@ -83,10 +83,11 @@ def _payloads(rng, lengths):
 @pytest.mark.parametrize("shards", [1, 2, 4])
 @pytest.mark.parametrize("case", ["mod4", "empty", "widest"])
 def test_word_upload_equals_payload_batch(case, shards):
-    """upload_words' device-built words equal payload_words of
-    payload_batch's zero-padded buffer, with its sample counts, lengths and
-    pad lanes, for payload lengths 0-3 mod 4 and meshes of 2 and 4."""
-    from x3_tpu_torch.models.decoder import payload_batch, upload_words
+    """upload_span's device-built words from the payloads joined into one
+    buffer (_join) equal payload_words of payload_batch's zero-padded
+    buffer, with its sample counts, lengths and pad lanes, for payload
+    lengths 0-3 mod 4 and meshes of 2 and 4."""
+    from x3_tpu_torch.models.decoder import _join, payload_batch, upload_span
     from x3_tpu_torch.ops.decode_kernel import payload_words
 
     tiny = port_params(TINY)
@@ -97,7 +98,8 @@ def test_word_upload_equals_payload_batch(case, shards):
     payloads = _payloads(rng, lengths)
     counts = [32 if k % 3 else 70 for k in range(len(payloads))]  # 70: the n_blocks override
     buf, ns, plens, n_blocks = payload_batch(payloads, counts, tiny, shards)
-    words, ns_t, plens_t, nb = upload_words(payloads, counts, tiny, torch.device("cpu"), shards)
+    cpu = torch.device("cpu")
+    words, ns_t, plens_t, nb = upload_span(*_join(payloads, cpu), counts, tiny, cpu, shards)
     assert nb == n_blocks and words.dtype == torch.int32
     assert torch.equal(words, payload_words(torch.from_numpy(buf)))
     np.testing.assert_array_equal(ns_t.numpy(), ns)

@@ -245,8 +245,9 @@ def test_chip_smoke_fails_without_gpu(no_gpu, tmp_path):
 def test_payload_batch_is_the_decode_batch():
     """payload_batch's host buffer: payloads zero-padded to the
     decode_geometry width, lanes padded to a power of two with n = 0; the
-    words decode_frames_batch uploads (upload_words) are its words."""
-    from x3_tpu_torch.models.decoder import decode_geometry, payload_batch, upload_words
+    words decode_frames_batch uploads (upload_span of the payloads joined
+    into one buffer, _join) are its words."""
+    from x3_tpu_torch.models.decoder import _join, decode_geometry, payload_batch, upload_span
     from x3_tpu_torch.ops.decode_kernel import payload_words
 
     payloads = [bytes(range(3 * k, 7 * k)) for k in range(5)]
@@ -261,7 +262,8 @@ def test_payload_batch_is_the_decode_batch():
     np.testing.assert_array_equal(ns, counts + [0] * 3)
     np.testing.assert_array_equal(plens, lens + [0] * 3)
     assert not buf[5:].any()
-    words, ns_t, plens_t, nb = upload_words(payloads, counts, tiny, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    words, ns_t, plens_t, nb = upload_span(*_join(payloads, cpu), counts, tiny, cpu)
     assert nb == n_blocks and torch.equal(words, payload_words(torch.from_numpy(buf)))
     np.testing.assert_array_equal(ns_t.numpy(), ns)
     np.testing.assert_array_equal(plens_t.numpy(), plens)

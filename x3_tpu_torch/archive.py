@@ -5,7 +5,8 @@ bytes in memory and over an open file (headers read with seeks, so memory
 stays bounded on any archive size); the in-memory frame index
 (index_frames), the walker's errors at the bytes where it stops
 (check_tail), and the index of a whole archive file in sequential reads
-(index_frames_file); and the host payload-CRC check."""
+(index_frames_file): a FrameIndex, which walk_frames' entries also make
+(FrameIndex.of_walk)."""
 
 from __future__ import annotations
 
@@ -223,6 +224,12 @@ class FrameIndex:
         return FrameIndex(self.offsets[cut], self.n_samples[cut], self.payload_lens[cut], self.crcs[cut])
 
     @classmethod
+    def of_walk(cls, entries) -> "FrameIndex":
+        """The index of walk_frames' (payload_offset, FrameHeader) entries."""
+        cols = zip(*((off, h.samples, h.payload_len, h.payload_crc) for off, h in entries))
+        return cls(*(np.fromiter(c, t) for c, t in zip(cols, (np.int64, np.int32, np.int32, np.int64))))
+
+    @classmethod
     def concat(cls, parts) -> "FrameIndex":
         parts = list(parts)
         return cls(*(np.concatenate([getattr(p, k) for p in parts]) if parts else np.zeros(0, t)
@@ -361,16 +368,3 @@ def find_sync_file(f, start: int, n: int | None = None, chunk: int = 1 << 20) ->
             return -1
         pos += chunk
     return -1
-
-
-def verify_payload_crcs_parts(payloads, want_crcs) -> np.ndarray:
-    """bool [len(payloads)]: True where a payload's CRC16 equals the
-    expected value (the host CRC over zero-padded rows)."""
-    if not payloads:
-        return np.zeros(0, bool)
-    rows = np.zeros((len(payloads), max(len(p) for p in payloads)), dtype=np.uint8)
-    lens = np.zeros(len(payloads), dtype=np.int64)
-    for i, p in enumerate(payloads):
-        rows[i, : len(p)] = np.frombuffer(p, dtype=np.uint8)
-        lens[i] = len(p)
-    return crc16_many(rows, lens) == np.asarray(want_crcs, dtype=np.uint16)

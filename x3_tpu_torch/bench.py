@@ -147,6 +147,12 @@ def timed(fn, args, reps: int, passes: int = 3) -> float:
     return best
 
 
+def _rate(mbs: float) -> float:
+    """MB/s as reported: to 0.1, or to three significant digits below
+    1 MB/s, so that a slow positive rate (a loaded CPU) stays positive."""
+    return round(mbs, 1) if mbs >= 1 else float(f"{mbs:.3g}")
+
+
 def _log(msg: str) -> None:
     print(f"# {msg}", file=sys.stderr, flush=True)
 
@@ -202,8 +208,8 @@ def bench_class(wav: np.ndarray, params: Parameters, dev: torch.device, batch_fr
     decode_exact = torch.equal(out, dec_frames) and not bool(err.any())
     comp_mb = float(probe_nbytes.sum()) / 1e6
     return {
-        "encode_mbs": round(dev_encode_mbs, 1),
-        "decode_mbs": round(dev_decode_mbs, 1),
+        "encode_mbs": _rate(dev_encode_mbs),
+        "decode_mbs": _rate(dev_decode_mbs),
         "ratio": round(in_mb / comp_mb, 2),
         "decode_exact": decode_exact,
         "width_rung": w_rung,
@@ -250,8 +256,8 @@ def bench_e2e(wav: np.ndarray, params: Parameters, dev: torch.device, reps: int,
             dec_ts.append(time.perf_counter() - t0)
         back, _ = read_wav(bp)
     return {
-        "e2e_encode_mbs": round(mb / min(enc_ts[1:]), 1),
-        "e2e_decode_mbs": round(mb / min(dec_ts[1:]), 1),
+        "e2e_encode_mbs": _rate(mb / min(enc_ts[1:])),
+        "e2e_decode_mbs": _rate(mb / min(dec_ts[1:])),
         "e2e_exact": bool(errors == 0 and np.array_equal(back, wav)),
     }
 
@@ -337,7 +343,7 @@ def run(device="cuda", params: Parameters | None = None, batch_frames: int = ENC
         "e2e_encode_mbs": hydro["e2e_encode_mbs"],
         "e2e_decode_mbs": hydro["e2e_decode_mbs"],
         "e2e_vs_baseline": round(hydro["e2e_encode_mbs"] / BASELINE_ENCODE_MBS, 2),
-        "e2e_torch_encode_mbs": round(e2e_torch_encode_mbs, 1),
+        "e2e_torch_encode_mbs": _rate(e2e_torch_encode_mbs),
         "e2e_exact": all(c["e2e_exact"] for c in classes.values()),
         "compression_ratio": round(ratio, 2),
         "bit_exact": all(exact.values()) and golden_ok,

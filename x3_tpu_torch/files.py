@@ -7,9 +7,11 @@ CRCs checked (K3 and K1), with the plain PyTorch versions on "cpu".
 Memory is bounded in both directions: encode reads the WAV a batch at a
 time; x3a_to_wav reads the archive in sequential chunks on a read-ahead
 thread, indexes each chunk's frames in memory and decodes them from the
-chunk (_x3a_to_wav_stream), and appends to the WAV.  With resync, and in
-verify_x3a and X3aReader, the frame headers are walked with seeks and the
-payloads read a batch at a time.
+chunk (_x3a_to_wav_stream), and appends to the WAV.  X3aReader indexes the
+archive in sequential reads (archive.index_frames_file); verify_x3a and
+x3a_to_wav with resync walk the frame headers with seeks and the sync
+scanner.  These three decode a batch of frames from runs of the archive's
+bytes, one read a run into one host buffer (_decode_index).
 
 As in the reference, header and payload CRC mismatches raise, and a frame
 that fails to decode is counted and stops the decode.  With resync=True
@@ -19,6 +21,7 @@ reports and error classes are those of x3_tpu.files.
 
 from __future__ import annotations
 
+import itertools
 import wave
 
 import numpy as np
@@ -27,8 +30,8 @@ import torch
 from . import archive, constants
 from .device import resolve_device
 from .engine import resolve_batch_frames, resolve_engine
-from .errors import FrameHeaderInvalidPayloadCRC, X3Error, decode_error
-from .models.decoder import decode_frames_batch, decode_frames_flat, decode_frames_indexed
+from .errors import FrameDecodeUnexpectedEnd, FrameHeaderInvalidPayloadCRC, X3Error, decode_error
+from .models.decoder import decode_frames_indexed
 from .models.encoder import EncodeResult
 from .models.staging import BufferPool, host_empty
 from .params import Parameters, X3aSpec
@@ -76,44 +79,47 @@ def wav_to_x3a(
     return result
 
 
-def _decode_payload_batch(payloads, headers, params: Parameters, resync: bool, device, base: int = 0):
-    """Decode one batch of payloads with their CRCs checked on `device`.
+def _decode_index(f, index: archive.FrameIndex, params: Parameters, device, base: int | None = None):
+    """Decode the frames of `index` (at least one) from the open archive
+    `f` on `device`, their payload CRCs checked.
+
+    The frames are cut into runs whose bytes follow one another (a frame's
+    header starts where the previous payload ends), and each run, from its
+    first payload to its last payload's end, is read with one seek and one
+    readinto into one host buffer (pinned for a CUDA device); bytes that the
+    sync scanner skipped are not read.  One decode_frames_indexed call.
 
     Returns (samples: the frames' samples back to back, bounds int64 [F + 1]
     (frame i is samples[bounds[i]:bounds[i + 1]]), errs int array of
-    per-frame decode codes).  Without resync a payload-CRC mismatch raises,
-    naming the frame (`base` is the batch's first frame); with resync it
-    marks the frame with code 4."""
-    ns = [h.samples for h in headers]
-    want_crcs = [h.payload_crc for h in headers]
-    samples, errs, crc_ok = decode_frames_flat(payloads, ns, params, check_crcs=want_crcs, device=device)
+    per-frame decode codes).  `base` is the number of the first frame: a
+    payload-CRC mismatch then raises, naming the frame; with base None (the
+    resync decodes) it marks the frame with code 4."""
+    offs = index.offsets
+    ends = offs + index.payload_lens
+    cuts = np.r_[0, np.flatnonzero(offs[1:] - constants.FRAME_HEADER_LENGTH != ends[:-1]) + 1, len(offs)]
+    lo, size = offs[cuts[:-1]], ends[cuts[1:] - 1] - offs[cuts[:-1]]  # each run in the archive
+    at = np.cumsum(size) - size  # and in the buffer
+    buf = host_empty(int(size.sum()), torch.uint8, device)
+    view = memoryview(buf.numpy())
+    for src, dst, n in zip(lo.tolist(), at.tolist(), size.tolist()):
+        f.seek(src)
+        if f.readinto(view[dst : dst + n]) != n:
+            raise FrameDecodeUnexpectedEnd(f"archive ended inside a frame indexed at {src}")
+    local = offs + np.repeat(at - lo, np.diff(cuts))
+    samples, errs, crc_ok = decode_frames_indexed(buf, local, index.n_samples, index.payload_lens, params,
+                                                  check_crcs=index.crcs, device=device)
     if not crc_ok.all():
-        if not resync:
-            bad = int(np.nonzero(~crc_ok)[0][0])
-            raise FrameHeaderInvalidPayloadCRC(f"frame {base + bad} payload CRC mismatch")
-        errs = np.where(~crc_ok, 4, errs)
-    return samples, np.concatenate([[0], np.cumsum(ns, dtype=np.int64)]), errs
-
-
-def _read_payloads(f, batch):
-    out = []
-    for off, h in batch:
-        f.seek(off)
-        out.append(f.read(h.payload_len))
-    return out
+        if base is not None:
+            raise FrameHeaderInvalidPayloadCRC(f"frame {base + int(np.argmin(crc_ok))} payload CRC mismatch")
+        errs = np.where(crc_ok, errs, 4)
+    return samples, np.concatenate([[0], np.cumsum(index.n_samples, dtype=np.int64)]), errs
 
 
 def _batches(walker, batch_frames: int):
-    """Lists of up to batch_frames (payload_offset, FrameHeader) entries."""
-    while True:
-        batch = []
-        for entry in walker:
-            batch.append(entry)
-            if len(batch) >= batch_frames:
-                break
-        if not batch:
-            return
-        yield batch
+    """The walker's (payload_offset, FrameHeader) entries as FrameIndexes
+    of up to batch_frames frames."""
+    while batch := list(itertools.islice(walker, batch_frames)):
+        yield archive.FrameIndex.of_walk(batch)
 
 
 # Sequential read size of x3a_to_wav's chunked decode (x3_tpu's
@@ -248,9 +254,7 @@ def x3a_to_wav(
                 return _x3a_to_wav_stream(f, wout, header_size, spec.params, batch_frames, device)
             base = 0
             for batch in _batches(archive.walk_frames_file(f, header_size, resync=True), batch_frames):
-                samples, bounds, errs = _decode_payload_batch(
-                    _read_payloads(f, batch), [h for _, h in batch], spec.params, True, device, base
-                )
+                samples, bounds, errs = _decode_index(f, batch, spec.params, device)
                 if not np.any(errs):
                     wout.write(samples)
                 else:
@@ -336,23 +340,19 @@ def verify_x3a(
         size = f.tell()
         expect = header_size  # where the next frame header should start
         for batch in _batches(archive.walk_frames_file(f, header_size, resync=True), batch_frames):
-            for off, h in batch:
+            for off, plen in zip(batch.offsets.tolist(), batch.payload_lens.tolist()):
                 hstart = off - constants.FRAME_HEADER_LENGTH
                 if hstart != expect:
                     skipped += hstart - expect
                     if verbose:
                         print(f"skipped {hstart - expect} bytes at {expect} (sync rescue)")
-                expect = off + h.payload_len
-            _, _, errs = _decode_payload_batch(
-                _read_payloads(f, batch), [h for _, h in batch], spec.params, True, device
-            )
-            for i, ((_, h), err) in enumerate(zip(batch, errs)):
-                if err:
-                    frame_errors += 1
-                    if verbose:
-                        print(f"Frame error: frame {n_frames + i} failed to decode")
-                else:
-                    n_samples_ok += h.samples
+                expect = off + plen
+            _, _, errs = _decode_index(f, batch, spec.params, device)
+            for i in np.flatnonzero(errs).tolist():
+                frame_errors += 1
+                if verbose:
+                    print(f"Frame error: frame {n_frames + i} failed to decode")
+            n_samples_ok += int(batch.n_samples[errs == 0].sum())
             n_frames += len(batch)
         if size - expect > 0:
             skipped += size - expect  # trailing bytes no valid frame covers
@@ -371,8 +371,8 @@ def verify_x3a(
 class X3aReader:
     """Frame-by-frame reader with random access.
 
-    Holds the header index (20 B a frame) and the current decoded batch;
-    payloads are read with seeks a batch at a time."""
+    Holds the frame index (archive.index_frames_file, about 18 B a frame)
+    and the current decoded batch, read a batch at a time (_decode_index)."""
 
     def __init__(self, filename, engine: str = "auto", batch_frames: int | None = None, *, device="cuda"):
         self._engine = resolve_engine(engine)
@@ -381,7 +381,7 @@ class X3aReader:
         self._f = open(filename, "rb")
         try:
             self._spec, header_size = archive.read_archive_header_file(self._f)
-            self._index = list(archive.walk_frames_file(self._f, header_size))
+            self._index = archive.index_frames_file(self._f, header_size)
         except BaseException:
             self._f.close()
             raise
@@ -411,12 +411,9 @@ class X3aReader:
         return len(self._index)
 
     def _decode_batch(self, base: int):
-        batch = self._index[base : base + self._batch_frames]
         # A payload-CRC mismatch raises; a decode error becomes a None entry.
-        samples, bounds, errs = _decode_payload_batch(
-            _read_payloads(self._f, batch), [h for _, h in batch], self._spec.params, False,
-            self._device, base,
-        )
+        samples, bounds, errs = _decode_index(self._f, self._index[base : base + self._batch_frames],
+                                              self._spec.params, self._device, base)
         self._cache = {}  # only the current batch stays resident
         for i, err in enumerate(errs):
             self._cache[base + i] = None if err else samples[bounds[i] : bounds[i + 1]]
@@ -457,8 +454,7 @@ class X3aReader:
         """int64 [n_frames + 1] cumulative sample offsets, from the header
         index alone."""
         if not hasattr(self, "_offsets"):
-            counts = np.asarray([h.samples for _, h in self._index], dtype=np.int64)
-            self._offsets = np.concatenate([[0], np.cumsum(counts)])
+            self._offsets = np.concatenate([[0], np.cumsum(self._index.n_samples, dtype=np.int64)])
         return self._offsets
 
     @property
@@ -489,17 +485,12 @@ class X3aReader:
         return out
 
     def _decode_single(self, i: int) -> None:
-        """Decode frame i alone, raising its own error class: the payload
-        CRC is checked on the host first, then the frame is decoded on the
-        device and a decode code raises its class."""
-        (payload,) = _read_payloads(self._f, self._index[i : i + 1])
-        h = self._index[i][1]
-        if not archive.verify_payload_crcs_parts([payload], [h.payload_crc])[0]:
-            raise FrameHeaderInvalidPayloadCRC(f"frame {i} payload CRC mismatch")
-        outs, errs = decode_frames_batch([payload], [h.samples], self._spec.params, device=self._device)
+        """Decode frame i alone, raising its own error class: a payload CRC
+        mismatch first, then a decode code's class."""
+        samples, _, errs = _decode_index(self._f, self._index[i : i + 1], self._spec.params, self._device, i)
         if errs[0]:
             raise decode_error(int(errs[0]), f"frame {i} failed to decode")
-        self._cache[i] = outs[0]
+        self._cache[i] = samples
 
     def __getitem__(self, i: int) -> np.ndarray:
         if i < 0:

@@ -1,19 +1,19 @@
 """Public decode API of the port (x3_tpu.models.decoder).
 
-Decodes many frame payloads at once from one host buffer: the bytes from
-the first payload to the end of the last go to the device in one copy,
-with the payloads' offsets and lengths (pinned, non-blocking on a card),
-where the big-endian payload words [F, W] are gathered with a width and
-block count that follow the batch (decode_geometry) and the lane count
-padded to a power of two; the frames are walked there, optionally with
-the payload CRCs checked too, and read back in one pinned copy behind an
-event: as one array a frame (views of it) or, compacted on the device, as
-the frames' samples back to back (decode_frames_flat,
-decode_frames_indexed).  The buffer is a chunk of an archive as read
-(decode_frames_indexed, under the file decode) or the payloads of a list
-joined into one (the other calls).  decode_frames_indexed's host side up
-to the read-back's wait is the x3.decode.launch span (utils.profiling),
-with the bytes its uploads copy to a card (h2d_bytes)."""
+Every decode goes through decode_frames_indexed, which decodes many frames
+at once from one host buffer: the bytes from the first payload to the end
+of the last go to the device in one copy, with the payloads' offsets and
+lengths (pinned, non-blocking on a card), where the big-endian payload
+words [F, W] are gathered with a width and block count that follow the
+batch (decode_geometry) and the lane count padded to a power of two; the
+frames are walked there, optionally with the payload CRCs checked too, and
+their samples compacted on the device (compact_frames) and read back back
+to back in one pinned copy behind an event.  The buffer holds runs of an
+archive's bytes as read (the file and batch decodes) or the payloads of a
+list joined into one (decode_frames_flat; decode_frames_batch splits its
+samples into one view a frame).  decode_frames_indexed's host side up to
+the read-back's wait is the x3.decode.launch span (utils.profiling), with
+the bytes its uploads copy to a card (h2d_bytes)."""
 
 from __future__ import annotations
 
@@ -136,43 +136,6 @@ def upload_span(data: torch.Tensor, offsets, lengths, n_samples, params: Paramet
     return packed_payload_words(span, meta_t[0], meta_t[1], w), meta_t[2], meta_t[1], n_blocks
 
 
-def upload_words(payloads, n_samples, params: Parameters, device, shards: int = 1):
-    """upload_span of a list of payloads (bytes), joined into one pinned
-    buffer first."""
-    return upload_span(*_join(payloads, device), n_samples, params, device, shards)
-
-
-def _walk(data, offsets, lengths, n_samples, params: Parameters, checked: bool, mesh):
-    """Upload and walk one decode batch on the mesh (each shard walked, and
-    CRC-checked when `checked`, on its entry's device): (out int16 [Fp,
-    S'], err int32 [Fp], crc int32 [Fp] or None, ns int32 [Fp]), gathered on
-    the mesh's first device, nothing read back."""
-    from ..ops.decode_kernel import decode_words, decode_words_checked
-
-    words, ns, plens, n_blocks = upload_span(data, offsets, lengths, n_samples, params, mesh.devices[0],
-                                             mesh.size)
-    run = decode_words_checked if checked else decode_words
-    out, err, crc = shard_map(lambda w, n, pl: run(w, n, pl, params, n_blocks), mesh, words, ns, plens)
-    return out, err, (crc if checked else None), ns
-
-
-def _enqueue_read_back(f: int, err, crc, *more):
-    """Host copies of err[:f], the CRC verdicts and `more`, enqueued, with
-    an event behind them all: read them after _read_back waits on it."""
-    host = [to_host(t) for t in (err[:f], *((crc[:f],) if crc is not None else ()), *more)]
-    return host, record(err.device)
-
-
-def _read_back(host, event, crc, check_crcs):
-    """_enqueue_read_back's copies as arrays, once its event has completed,
-    with the CRCs compared to check_crcs."""
-    wait(event)
-    out = [t.numpy() for t in host]
-    if crc is not None:
-        out[1] = out[1] == np.asarray(check_crcs, dtype=np.int64)
-    return out
-
-
 def decode_frames_batch(payloads, n_samples, params: Parameters | None = None,
                         check_crcs=None, device="cuda", mesh=None):
     """Decode a list of frame payloads (bytes) with their sample counts.
@@ -181,21 +144,14 @@ def decode_frames_batch(payloads, n_samples, params: Parameters | None = None,
     expected payload CRC16s) also a bool array crc_ok, computed on the
     device over the same words.  err holds the per-frame codes of
     ops.decode_kernel (0 ok, 1 invalid BFP, 2 OOB inverse, 3 overrun).
-    The frames' arrays are views of one array that this call allocates and
-    no other call shares (x3_tpu returns copies; the values are equal).
+    The frames' arrays are decode_frames_flat's samples split at the cumsum
+    of n_samples: views of one array that this call allocates and no other
+    call shares (x3_tpu returns copies; the values are equal).
     mesh: a models.sharding.Mesh of `device`'s type to shard the batch over
     (each shard walked and CRC-checked on its entry's device)."""
-    mesh = check_mesh(mesh, device)
-    params = params or Parameters()
-    f = len(payloads)
-    if f == 0:
-        empty = ([], np.zeros(0, np.int32))
-        return empty if check_crcs is None else empty + (np.zeros(0, bool),)
-    data, offsets, lengths = _join(payloads, mesh.devices[0])
-    out, err, crc, _ = _walk(data, offsets, lengths, n_samples, params, check_crcs is not None, mesh)
-    *head, host = _read_back(*_enqueue_read_back(f, err, crc, out[:f]), crc, check_crcs)
-    outs = [host[i, :n] for i, n in enumerate(np.asarray(n_samples).tolist())]
-    return (outs, *head)
+    samples, *rest = decode_frames_flat(payloads, n_samples, params, check_crcs, device, mesh)
+    cuts = np.cumsum(np.asarray(n_samples, dtype=np.int64))[:-1]
+    return (np.split(samples, cuts) if len(payloads) else [], *rest)
 
 
 def compact_frames(out: torch.Tensor, ns: torch.Tensor, total: int) -> torch.Tensor:
@@ -211,9 +167,10 @@ def compact_frames(out: torch.Tensor, ns: torch.Tensor, total: int) -> torch.Ten
 
 def decode_frames_flat(payloads, n_samples, params: Parameters | None = None,
                        check_crcs=None, device="cuda", mesh=None):
-    """decode_frames_batch with the frames' samples back to back: (int16
-    [sum(n_samples)], err) or, with check_crcs, (samples, err, crc_ok).
-    decode_frames_indexed over the payloads joined into one buffer."""
+    """Decode a list of frame payloads (bytes) with their sample counts,
+    the frames' samples back to back: (int16 [sum(n_samples)], err) or,
+    with check_crcs, (samples, err, crc_ok), as decode_frames_batch gives
+    them.  decode_frames_indexed over the payloads joined into one buffer."""
     mesh = check_mesh(mesh, device)
     data, offsets, lengths = _join(payloads, mesh.devices[0])
     return decode_frames_indexed(data, offsets, n_samples, lengths, params, check_crcs, device, mesh)
@@ -245,13 +202,22 @@ def decode_frames_indexed(data, offsets, n_samples, payload_lens, params: Parame
     if f == 0:
         empty = (np.zeros(0, np.int16), np.zeros(0, np.int32))
         return empty if check_crcs is None else empty + (np.zeros(0, bool),)
+    from ..ops.decode_kernel import decode_words, decode_words_checked
+
+    run = decode_words if check_crcs is None else decode_words_checked
     with profiling.span("x3.decode.launch", h2d_bytes=0):
-        out, err, crc, ns = _walk(_host_bytes(data), offsets, payload_lens, n_samples, params,
-                                  check_crcs is not None, mesh)
+        # Each shard walked (and CRC-checked) on its mesh entry's device,
+        # gathered on the first; then the host copies behind one event.
+        words, ns, plens, n_blocks = upload_span(_host_bytes(data), offsets, payload_lens, n_samples,
+                                                 params, mesh.devices[0], mesh.size)
+        out, err, crc = shard_map(lambda w, n, pl: run(w, n, pl, params, n_blocks), mesh, words, ns, plens)
         flat = compact_frames(out, ns[:f], int(np.sum(n_samples, dtype=np.int64)))
-        pending = _enqueue_read_back(f, err, crc, flat if arrange is None else arrange(flat))
-    *head, host = _read_back(*pending, crc, check_crcs)
-    return (host, *head)
+        checks = () if check_crcs is None else (crc[:f],)
+        host = [to_host(t) for t in (err[:f], *checks, flat if arrange is None else arrange(flat))]
+        event = record(err.device)
+    wait(event)
+    err, *crc, samples = (t.numpy() for t in host)
+    return (samples, err, *(c == np.asarray(check_crcs, dtype=np.int64) for c in crc))
 
 
 def decode_frame(payload: bytes, params: Parameters, samples: int, device="cuda") -> np.ndarray:

@@ -74,8 +74,8 @@ def decode_multichannel(manifest_path, engine: str = "auto", batch_frames: int |
                         device="cuda"):
     """Decode a .x3m manifest back to ([C, n] int16 samples, sample_rate).
 
-    Channels stream through files.X3aReader (header index and per-batch
-    seek reads), so beyond the output array only one decode batch is
+    Channels stream through files.X3aReader (a frame index, then one
+    read a batch), so beyond the output array only one decode batch is
     resident: the compressed archives are never held in memory."""
     from .files import X3aReader
 
